@@ -1,0 +1,223 @@
+"""File-source lane banks (port of ``FileBatch`` from
+``phonic_tpu/graph/batching.py``).
+
+Homogeneous FileSources (same loop kind, endlessness, channel layout, fade
+flags and length bucket) render as one bank of lanes: stacked buffers, a
+leading lane dimension on every per-source tensor, and one batched read
+(ops/rampread.py).  Per-source positions, fades, loop bounds and stop/kill
+frames are tensors, so any of them may change between blocks.
+
+The JAX package vmaps a one-lane function over the bank; here the lane
+dimension is written out: positions and parameters are ``[S, n]``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import rampread
+from ..ops import resample as rs
+from ..ops.buffer import remap_channels
+from ..ops.convert import panning_factors
+from ..ops.precision import ds_add
+from ..sources.file import FileSource, _host_fade_log1m
+
+
+def group_key(src: FileSource):
+    """Sources with equal keys share one lane bank."""
+    return (
+        "file",
+        src.buffer.channels,
+        src.buffer.sample_rate,
+        "none" if src.loop_range is None else src.loop_mode,
+        src.options.repeat is None,
+        src.options.resampling_quality,
+        src.options.fade_in_secs > 0.0,
+        src.options.fade_out_secs > 0.0,
+        # every lane zero-pads to the group's longest buffer
+        rs.length_bucket(src.buffer.frames),
+    )
+
+
+class FileBatch:
+    """Static per-group data (on the program's device) + the renderer."""
+
+    def __init__(self, sources: list[FileSource], paths: list[str], ctx):
+        self.sources = sources
+        self.paths = paths
+        self.ctx = ctx
+        s0 = sources[0]
+        self.loop_kind = "none" if s0.loop_range is None else s0.loop_mode
+        self.endless = s0.options.repeat is None
+        self.channels_in = s0.buffer.channels
+        self.has_fade_in = s0.options.fade_in_secs > 0.0
+        self.has_fade_out = s0.options.fade_out_secs > 0.0
+
+        dev = ctx.device
+        fmax = max(s.buffer.frames for s in sources)
+        bufs = np.zeros((len(sources), self.channels_in, fmax + 1), np.float32)
+        for i, s in enumerate(sources):
+            bufs[i, :, : s.buffer.frames + 1] = np.asarray(s.buffer.data)
+        sr = ctx.sample_rate
+        self.buffers = torch.as_tensor(bufs, device=dev)
+        self.smap = torch.arange(len(sources), dtype=torch.int32, device=dev)
+
+        def lane(fn, dtype):
+            """Per-lane metadata as [S, 1], to broadcast against [S, n]."""
+            return torch.tensor([[fn(s)] for s in sources], dtype=dtype,
+                                device=dev)
+
+        def fade(secs):
+            return _host_fade_log1m(secs, sr) if secs > 0 else 0.0
+
+        i32, f32 = torch.int32, torch.float32
+        self.frames = lane(lambda s: s.buffer.frames, i32)
+        self.start_time = lane(lambda s: s.options.start_time, torch.int64)
+        self.repeat = lane(lambda s: s.options.repeat or 0, i32)
+        self.loop_start = lane(
+            lambda s: 0 if s.loop_range is None else int(s.loop_range[0]), i32)
+        self.loop_end = lane(
+            lambda s: 1 if s.loop_range is None else int(s.loop_range[1]), i32)
+        self.ratio = lane(lambda s: s.buffer.sample_rate / sr, f32)
+        self.fade_in_log1m = lane(lambda s: fade(s.options.fade_in_secs), f32)
+        self.fade_out_log1m = lane(lambda s: fade(s.options.fade_out_secs), f32)
+
+    def init_state(self):
+        """Running state: the compensated position ``base + frac + frac_lo``
+        per lane."""
+        s, dev = len(self.sources), self.ctx.device
+        return {
+            "base": torch.zeros(s, dtype=torch.int32, device=dev),
+            "frac": torch.zeros(s, dtype=torch.float32, device=dev),
+            "frac_lo": torch.zeros(s, dtype=torch.float32, device=dev),
+        }
+
+    def _fold(self, ki, fr):
+        """Linear source position (int frames ki + frac fr) -> buffer
+        position + live mask (reference loop semantics:
+        src/source/file/preloaded.rs:270-332)."""
+        frames, rpt = self.frames, self.repeat
+        lstart, lend = self.loop_start, self.loop_end
+        if self.loop_kind != "none":
+            length = torch.clamp(lend - lstart, min=1)
+            rel = ki - lstart
+            if self.loop_kind == "pingpong":
+                c = torch.remainder(rel, 2 * length)
+                fwd = c < length
+                fki = torch.where(fwd, lstart + c, lstart + 2 * length - c - 1)
+                ffr = torch.where(fwd, fr, 1.0 - fr)
+            else:
+                fki = lstart + torch.remainder(rel, length)
+                ffr = fr
+            in_loop = ki >= lstart
+            if self.endless:
+                return (torch.where(in_loop, fki, ki),
+                        torch.where(in_loop, ffr, fr),
+                        torch.ones_like(ki, dtype=torch.bool))
+            span = lstart + (rpt + 1) * length
+            after_ki = ki - rpt * length  # continue past the loop to file end
+            fki = torch.where(ki < span, torch.where(in_loop, fki, ki), after_ki)
+            ffr = torch.where(ki < span, torch.where(in_loop, ffr, fr), fr)
+            return fki, ffr, ki < frames + rpt * length
+        if self.endless:
+            return (torch.remainder(ki, frames), fr,
+                    torch.ones_like(ki, dtype=torch.bool))
+        p = torch.where(rpt > 0, torch.remainder(ki, frames), ki)
+        return p, fr, ki < frames * (rpt + 1)
+
+    def _fold_state(self, base):
+        """Keep the carried position bounded for endless playback."""
+        if not self.endless:
+            return base
+        frames = self.frames[:, 0]
+        if self.loop_kind != "none":
+            lstart, lend = self.loop_start[:, 0], self.loop_end[:, 0]
+            length = torch.clamp(lend - lstart, min=1)
+            period = 2 * length if self.loop_kind == "pingpong" else length
+            return torch.where(base >= lstart,
+                               lstart + torch.remainder(base - lstart, period),
+                               base)
+        return torch.remainder(base, frames)
+
+    def lane_pos(self, state, frame0: int, speed, kill_at, seek_flag,
+                 seek_pos, smax: float):
+        """Per-lane read positions ``[S, n]``, the activity mask and the
+        next block's position state."""
+        n = self.ctx.block_frames
+        dev = self.ctx.device
+        gframes = frame0 + torch.arange(n, dtype=torch.int64, device=dev)
+        active = (gframes >= self.start_time) & (gframes < kill_at[:, None])
+
+        seek = seek_flag > 0.5
+        seek_int = torch.floor(seek_pos)
+        base0 = torch.where(seek, seek_int.to(torch.int32), state["base"])
+        frac0 = torch.where(seek, seek_pos - seek_int, state["frac"])
+        lo0 = torch.where(seek, 0.0, state["frac_lo"])
+
+        steps = torch.where(active, speed * self.ratio, 0.0)
+        # the JAX package's windowed reads need steps <= smax (2**bucket of
+        # the max speed ever scheduled, so this never binds in contract);
+        # clamping here keeps the positions identical to it
+        steps = torch.clamp(steps, max=smax)
+        # positions as affine base + residual cumsum: exact for constant
+        # speed, and the residual is tiny during glides
+        s0 = steps[:, -1:]
+        resid = torch.cumsum(steps - s0, dim=-1)
+        rel = s0 * torch.arange(n, dtype=torch.float32, device=dev) + torch.cat(
+            [torch.zeros_like(resid[:, :1]), resid[:, :-1]], dim=-1)
+        p = frac0[:, None] + (rel + lo0[:, None])
+        ip = torch.floor(p)
+        fr = p - ip
+        ki = base0[:, None] + ip.to(torch.int32)
+
+        fki, ffr, live = self._fold(ki, fr)
+        mask = (active & live).to(torch.float32)
+        pos = fki.to(torch.float32) + ffr
+
+        advance = s0[:, 0] * np.float32(n) + resid[:, -1]
+        total, lo_new = ds_add(frac0, lo0, advance)
+        carry = torch.floor(total)
+        new_base = self._fold_state(base0 + carry.to(torch.int32))
+        # subtracting the integer part is exact, so lo carries over unchanged
+        return pos, mask, {"base": new_base, "frac": total - carry,
+                           "frac_lo": lo_new}
+
+    def lane_post(self, audio, mask, frame0: int, volume, panning, stop_at):
+        """Mask, channel remap, volume with fades, and pan: [S, ch, n]."""
+        ctx = self.ctx
+        n = ctx.block_frames
+        gframes = frame0 + torch.arange(n, dtype=torch.int64, device=ctx.device)
+        audio = remap_channels(audio * mask[:, None, :], ctx.channels)
+        gain = volume
+        if self.has_fade_in:
+            k_in = (gframes - self.start_time + 1).to(torch.float32)
+            up = 1.0 - torch.exp(self.fade_in_log1m * torch.clamp(k_in, min=0.0))
+            gain = gain * torch.where(
+                k_in > 0, torch.where(up > 1.0 - 1e-4, 1.0, up), 0.0)
+        k_out = (gframes - stop_at[:, None] + 1).to(torch.float32)
+        if self.has_fade_out:
+            down = torch.exp(self.fade_out_log1m * torch.clamp(k_out, min=0.0))
+            gain = gain * torch.where(
+                k_out > 0, torch.where(down < 1e-4, 0.0, down), 1.0)
+        else:
+            gain = gain * (gframes < stop_at[:, None])
+        audio = audio * gain[:, None, :]
+        if ctx.channels >= 2:
+            left, right = panning_factors(panning)
+            audio = torch.cat([audio[:, :1] * left[:, None],
+                               audio[:, 1:2] * right[:, None], audio[:, 2:]],
+                              dim=1)
+        return audio
+
+    def render(self, state, frame0: int, volume, panning, speed, stop_at,
+               kill_at, seek_flag, seek_pos):
+        """Parameters ``[S, n]``; stop/kill frames and seeks ``[S]``.
+        Returns (new_state, out [S, ch, n])."""
+        smax = 2.0 ** max(s.speed_bucket(self.ctx.sample_rate)
+                          for s in self.sources)
+        pos, mask, new_state = self.lane_pos(state, frame0, speed, kill_at,
+                                             seek_flag, seek_pos, smax)
+        audio = rampread.ramp_read(self.buffers, self.smap, pos)
+        return new_state, self.lane_post(audio, mask, frame0, volume,
+                                         panning, stop_at)
