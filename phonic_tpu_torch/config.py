@@ -4,8 +4,9 @@ The engine renders in large fixed-size blocks stepped from the host; per-
 sample control is lowered to analytic parameter ramps, so block size only
 trades latency against throughput, not correctness.
 
-The device is explicit: ``EngineConfig(device="cuda")`` renders on the GPU
-and raises if there is none.  Nothing silently drops to the CPU.
+The device defaults to the CUDA card: ``EngineConfig()`` renders on the GPU
+and raises if there is none.  Nothing silently drops to the CPU; a CPU
+render asks for it with ``EngineConfig(device="cpu")``.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ class EngineConfig:
     # dtype used for recursive filter state / recurrences.  The CUDA kernels
     # take float32 only; float64 runs on the CPU plain versions.
     scan_dtype: torch.dtype = torch.float32
-    device: Union[str, torch.device] = "cpu"
+    device: Union[str, torch.device] = "cuda"
 
     def __post_init__(self):
         if self.meter_mixers:

@@ -54,7 +54,8 @@ def mixer_graph() -> Mixer:
 
 
 def mixer_graph_program(block_frames: int = 131072,
-                        device="cpu") -> RenderProgram:
-    """The headline graph as a program at 48 kHz stereo."""
+                        device="cuda") -> RenderProgram:
+    """The headline graph as a program at 48 kHz stereo, on the CUDA card
+    unless ``device`` says otherwise."""
     config = EngineConfig(sample_rate=SAMPLE_RATE, block_frames=block_frames)
     return RenderProgram(mixer_graph(), config, device=device)

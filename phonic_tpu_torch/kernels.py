@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
 The sources are compiled at first use with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  The library lands in ``_build/<hash>/`` inside the package,
 keyed by a hash of the sources and flags, so an edited kernel rebuilds and
 an unchanged one is reused.  Nothing is built or loaded at import time: the
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libphonic_kernels.so"
 
 _P = ctypes.c_void_p
@@ -37,6 +38,8 @@ _SIGNATURES = {
     "phonic_iir2": ([_I] + [_P] * 11 + [_I, _L, _P], _I),
     "phonic_iir1_scratch": ([_I, _L], _L),
     "phonic_iir2_scratch": ([_I, _L], _L),
+    "phonic_follower": ([_I] + [_P] * 6 + [_I, _L, _P], _I),
+    "phonic_gate": ([_I] + [_P] * 9 + [_I, _L, _P], _I),
     "phonic_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -71,14 +74,28 @@ def library_path() -> Path:
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = out.with_name(f"{src.stem}.{os.getpid()}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate()[0] for p in procs]
     tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
-                           f"{res.stderr[-4000:]}")
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        failed = [link.returncode] if link.returncode != 0 else []
+    (out.parent / "build.log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed with code {failed[0]}:\n"
+                           f"{''.join(logs)[-4000:]}")
     os.replace(tmp, out)
     return out
 

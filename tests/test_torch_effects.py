@@ -42,16 +42,17 @@ def _ramp(v0, v1):
     return np.linspace(v0, v1, N, dtype=np.float32)
 
 
-def _run(jlanes, plines, params_of, resets=None):
+def _run(jlanes, plines, params_of, resets=None, band=(80.0, 2000.0)):
     """Render LANES lanes x 2 blocks through both packages and compare.
     ``params_of(block, lane)`` -> {parameter id: float32 [N]}; ``resets``
-    names the (block, lane) pairs that get a reverb Reset message."""
+    names the (block, lane) pairs that get a reverb Reset message; the
+    input tones are drawn from the frequency ``band`` (Hz)."""
     jstep = jax.jit(lambda st, x, p: jlanes[0].process(st, x, p, JCTX))
     jstates = [e.init_state(JCTX) for e in jlanes]
     pstate = stack_states([e.init_state(PCTX) for e in plines])
     rng = np.random.default_rng(len(jlanes[0].PARAMS))
     t = np.arange(2 * N) / SR
-    freqs = rng.uniform(80.0, 2000.0, (LANES, 2, 3, 1))
+    freqs = rng.uniform(*band, (LANES, 2, 3, 1))
     phases = rng.uniform(0.0, 2.0 * np.pi, (LANES, 2, 3, 1))
     tones = (0.3 * np.sin(2 * np.pi * freqs * t + phases).sum(axis=2)
              + 0.05).astype(np.float32)  # with a DC offset for the DC filter

@@ -69,7 +69,7 @@ def _schedule(prog):
 
 
 def _port_program():
-    prog = mixer_graph_program(block_frames=BLOCK)
+    prog = mixer_graph_program(block_frames=BLOCK, device="cpu")
     _schedule(prog)
     return prog
 
@@ -107,7 +107,7 @@ def test_unbatched_chains_match_jax(jax_run):
     the result is the same render."""
     want, _ = jax_run
     prog = RenderProgram(mixer_graph(), EngineConfig(
-        block_frames=BLOCK, batch_effects=False))
+        block_frames=BLOCK, batch_effects=False, device="cpu"))
     assert all(len(c["mixers"]) == 1 for c in prog.chains)
     _schedule(prog)
     _close(prog.render(2 * BLOCK), want)
@@ -125,15 +125,22 @@ def test_state_from_jax_needs_matching_paths(jax_run):
     _, state1 = jax_run
     main = mixer_graph()
     main.effects[-1].name = "master_gain"  # a path the JAX state lacks
-    prog = RenderProgram(main, EngineConfig(block_frames=BLOCK))
+    prog = RenderProgram(main, EngineConfig(block_frames=BLOCK, device="cpu"))
     with pytest.raises(KeyError, match="master_gain"):
         state_from_jax(state1, prog)
 
 
 def test_cuda_program_needs_a_card():
+    """The entry points target the card by default and never fall back to
+    the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; chip_smoke.py covers this path")
+    assert EngineConfig().device == "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         mixer_graph_program(block_frames=BLOCK, device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
+        mixer_graph_program(block_frames=BLOCK)
+    with pytest.raises(RuntimeError, match="cuda"):
         RenderProgram(mixer_graph(), EngineConfig(device="cuda"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        RenderProgram(mixer_graph())

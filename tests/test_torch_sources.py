@@ -66,7 +66,7 @@ def jax_audio():
 @pytest.mark.parametrize("batch_sources", [True, False])
 def test_sources_match_jax(jax_audio, batch_sources):
     prog = pt.RenderProgram(_graph(pt), pt.EngineConfig(
-        block_frames=BLOCK, batch_sources=batch_sources))
+        block_frames=BLOCK, batch_sources=batch_sources, device="cpu"))
     assert len(prog.file_batches) == (5 if batch_sources else 9)
     _schedule(prog)
     got = prog.render(4 * BLOCK)
