@@ -9,26 +9,38 @@ Needs one CUDA card and ``nvcc``; exits non-zero without them or when any
 phase fails.  Phases:
 
 1. build ``phonic_tpu_torch/csrc/*.cu`` (sm_90a, one nvcc per source, in
-   parallel) and print the build time and the compiler's register /
-   shared-memory report;
+   parallel) and print the build time, the compiler's register /
+   shared-memory report and, for the gate and iir2 kernels, a summary of
+   their machine code (``cuobjdump -sass``): shared loads by width, and how
+   far ahead of its first use each shared load of the chain loops is
+   issued;
 2. each kernel against its plain version on the same inputs, at the render
    paths' shapes and at ragged ones, with its time beside the plain
-   version's (CUDA events).  The follower and the gate must agree with
-   their plain versions exactly; at 131072 samples their plain versions
-   (a Python loop over time) run on a CPU copy of the card's inputs;
+   version's (CUDA events around the wrapper).  The follower and the gate
+   must agree with their plain versions exactly; at 131072 samples their
+   plain versions (a Python loop over time) run on a CPU copy of the card's
+   inputs.  The gate also runs edge cases: lengths at its tile and
+   target-ring sizes and one off, holds of 0 and 1 samples, a gate that
+   flips on every sample, and holds that run out just before, at and after
+   a tile boundary;
 3. the headline graph (16 file sources -> 4 sub-mixers with EQ5 + chorus ->
    reverb + gain, 131072-frame blocks at 48 kHz stereo) rendered on the card
    through ``RenderProgram.render``: the launch counters of its kernels
    (ramp read, iir2, iir1) must grow, the audio must be finite and not
    silent, and its first two blocks must match the same program rendered
-   on the CPU to -90 dB of peak.  One more block, rendered under
-   ``torch.profiler``, gives the device operations and device time per
-   block and the device's busy share (device time over that block's wall
-   time, both under the profiler);
+   on the CPU to -90 dB of peak;
 4. the mastering chain (4 looping file sources -> gate -> compressor ->
    delay -> distortion -> limiter, 131072-frame blocks at 48 kHz stereo),
    checked the same way; all five kernels' counters must grow.  It also
-   times one roll of the delay's window at its shapes.
+   times one roll of the delay's window at its shapes;
+5. under ``torch.profiler``, after every timed render (a profiler session
+   slows the launches that follow it in the process): one more block of
+   each path, which gives the device operations and device time per block
+   and the device's busy share (device time over that block's wall time,
+   both under the profiler); each kernel's kernel-only device time at each
+   path's shape and iir2's at R=40 (the profiler's events of its own
+   launches, and their number per call); and the headline graph's rate
+   once more, after the profiler.
 
 The line before the last is a JSON object with each kernel's numbers from
 this run: at top level those of the mastering chain, which runs all five
@@ -36,10 +48,13 @@ kernels, and under ``by_path`` those of each path.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -60,9 +75,15 @@ RAMP_TOL = 1e-5  # unit-scale data; FMA contraction vs the plain x-form
 # float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
-# dependent operations per sample on the follower's and the gate's serial
-# chain (csrc/follower.cu), at ~4 cycles of latency each
-CHAIN_OPS = {"follower": 4, "gate": 10}
+# the longest loop-carried path per sample of the follower's and the gate's
+# serial chains (csrc/follower.cu), at ~4 cycles of latency each: the
+# follower's env (compare, select, multiply, add; the subtract runs beside
+# the compare) is 4 deep.  The gate carries three chains, each depending
+# only on its own previous value and this sample's inputs: env, 4 deep; the
+# hold counter (subtract, max, select), 3 deep; the gain (compare, select,
+# multiply, add over target[i], which is computed from env[i] off the
+# gain's loop), 4 deep.  So 4, not their sum.
+CHAIN_OPS = {"follower": 4, "gate": 4}
 CYCLES_PER_OP = 4
 # all operations per sample (compares, selects and arithmetic)
 OPS_PER_SAMPLE = {"follower": 5, "gate": 15}
@@ -73,6 +94,8 @@ COUNTERS = {"ramp_read": (rampread, "launches"),
             "iir1": (scan, "iir1_launches"),
             "follower": (follower, "follower_launches"),
             "gate": (follower, "gate_launches")}
+# the kernels whose machine code phase 1 summarises
+SASS_KERNELS = ("gate_kernel", "iir2_kernel")
 SOURCES = {"ramp_read": ("phonic_tpu_torch/csrc/rampread.cu",
                          "phonic_tpu/ops/rampread.py:176"),
            "iir2": ("phonic_tpu_torch/csrc/scan.cu",
@@ -101,6 +124,35 @@ def time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_time(name, fn, reps):
+    """Kernel-only device time of one call of ``fn``, from the profiler's
+    device events whose name holds the kernel's (every device function of
+    a kernel does) over ``reps`` calls after one warm-up.  Returns (ms,
+    launches per call)."""
+    fn()
+    torch.cuda.synchronize()
+    by_fn = {}
+    for _ in range(3):  # a short window now and then comes back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if (e.device_type == DeviceType.CUDA
+                    and name in e.name.lower()):
+                by_fn.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if by_fn:
+            break
+    else:
+        raise RuntimeError(f"{name}: the profiler saw no launch of its kernel")
+    # per device function: its mean time x its launches per call (the
+    # profiler may drop a launch at the window's edge)
+    per_call = {f: max(1, round(len(us) / reps)) for f, us in by_fn.items()}
+    ms = sum(sum(us) / len(us) * per_call[f] for f, us in by_fn.items()) / 1e3
+    return ms, sum(per_call.values())
 
 
 def bound(nbytes, ops):
@@ -160,16 +212,21 @@ def ramp_positions(rng, lanes, n, frames):
 
 def check_kernels(dev):
     """Each kernel against its plain version at the shape each render path
-    gives it and at ragged ones.  Returns {kernel: {path: numbers}}."""
+    gives it and at ragged ones.  Returns {kernel: {path: numbers}} and the
+    calls whose kernel-only time phase 5 takes: (kernel, path, label,
+    call), at the paths' shapes and iir2's at R=40."""
     rng = np.random.default_rng(0)
     results = {name: {} for name in COUNTERS}
+    calls = []
 
-    def record(name, path, res, moved, ops, **extra):
+    def record(name, path, res, moved, ops, fn, label, **extra):
         if path is not None:
             bound_ms, bound_by = bound(moved, ops)
             results[name][path] = dict(
                 max_abs_err=res[0], ms=res[1], plain_ms=res[2],
-                bound_ms=bound_ms, bound_by=bound_by, **extra)
+                bound_ms=bound_ms, bound_by=bound_by, shape=label, **extra)
+        if path is not None or label == f"R=40 T={BLOCK}":
+            calls.append((name, path, label, fn))
 
     # lanes, channels, table frames (longest buffer + guard), outputs, path
     for lanes, ch, frames, n, path in (
@@ -180,13 +237,14 @@ def check_kernels(dev):
             np.float32), device=dev)
         smap = torch.arange(lanes, dtype=torch.int32, device=dev)
         pos = torch.as_tensor(ramp_positions(rng, lanes, n, frames), device=dev)
-        res = compare(f"ramp_read B={lanes} ch={ch} F={frames} N={n}",
-                      lambda: rampread.ramp_read(src, smap, pos),
+        label = f"B={lanes} ch={ch} F={frames} N={n}"
+        fn = functools.partial(rampread.ramp_read, src, smap, pos)
+        res = compare(f"ramp_read {label}", fn,
                       lambda: rampread.ramp_read_plain(src, smap, pos),
                       RAMP_TOL, relative=False)
         # each output: a position, 4 taps and the Hermite sum
         record("ramp_read", path, res, nbytes(src, smap, pos) + 4 * lanes * ch * n,
-               20 * lanes * ch * n, shape=f"B={lanes} ch={ch} F={frames} N={n}")
+               20 * lanes * ch * n, fn, label)
 
     def uniform(lo, hi, shape):
         return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32),
@@ -196,28 +254,33 @@ def check_kernels(dev):
         return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
                                device=dev)
 
-    # stable coefficients: every row sum of |A| stays below 1
+    # stable coefficients: every row sum of |A| stays below 1.  Beside the
+    # paths' shapes: one segment (4096 samples) and one off, odd lengths
+    # (rows that start unaligned), one row and forty
     for r, t, path in ((8, BLOCK, "headline"), (2, 8192, "mastering"),
-                       (2, BLOCK, None), (2, 4097, None), (8, 4097, None),
-                       (40, BLOCK, None), (40, 4097, None)):
+                       (2, BLOCK, None), (1, 4095, None), (1, 4096, None),
+                       (1, 4097, None), (2, 4097, None), (8, 4097, None),
+                       (3, 12289, None), (40, BLOCK, None), (40, 4097, None)):
         args = (uniform(0.7, 0.95, (r, t)), uniform(-0.04, 0.04, (r, t)),
                 uniform(-0.04, 0.04, (r, t)), uniform(0.7, 0.95, (r, t)),
                 normal((r, t)), normal((r, t)), normal(r), normal(r))
-        res = compare(f"iir2 R={r} T={t}", lambda: scan.iir2(*args),
+        fn = functools.partial(scan.iir2, *args)
+        res = compare(f"iir2 R={r} T={t}", fn,
                       lambda: scan.chunked_second(*args), DB90, relative=True)
         # s = A s + b: 8 operations per sample; 2 outputs
         record("iir2", path, res, nbytes(*args) + 2 * 4 * r * t, 8 * r * t,
-               shape=f"R={r} T={t}")
+               fn, f"R={r} T={t}")
     for r, t, path in ((2, BLOCK, "headline"), (2, 8192, "mastering"),
                        (2, 999, None), (7, BLOCK, None), (7, 999, None)):
         a, b, y0 = uniform(0.7, 0.999, (r, t)), normal((r, t)), normal(r)
-        res = compare(f"iir1 R={r} T={t}", lambda: scan.iir1(a, b, y0),
+        fn = functools.partial(scan.iir1, a, b, y0)
+        res = compare(f"iir1 R={r} T={t}", fn,
                       lambda: scan.chunked_first(a, b, y0), DB90,
                       relative=True)
         record("iir1", path, res, nbytes(a, b, y0) + 4 * r * t, 2 * r * t,
-               shape=f"R={r} T={t}")
+               fn, f"R={r} T={t}")
     check_dynamics(dev, rng, record)
-    return results
+    return results, calls
 
 
 def dynamics_streams(rng, dev, b, n):
@@ -251,7 +314,8 @@ def check_dynamics(dev, rng, record):
     """Kernels 4 and 5 against their plain versions, exactly: at the
     mastering chain's shape (B=1, n=131072; the plain version, a Python
     loop over time, on a CPU copy of the inputs, timed on the host clock)
-    and at a ragged one (B=3, n=4097; the plain version on the card)."""
+    and at a ragged one (B=3, n=4097; the plain version on the card); then
+    the gate's edge cases (plain version on the card)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True)
@@ -263,9 +327,10 @@ def check_dynamics(dev, rng, record):
                            torch.full_like(env0, -60.0)], dim=-1)
         plain_dev = torch.device("cpu") if n == BLOCK else dev
         cases = {
-            "follower": (lambda: follower.follower(x, aa, ra, env0),
+            "follower": (functools.partial(follower.follower, x, aa, ra, env0),
                          follower.follower_plain, (x, aa, ra, env0)),
-            "gate": (lambda: follower.gate(x, aa, ra, thr, rng_db, hs, st0),
+            "gate": (functools.partial(follower.gate, x, aa, ra, thr, rng_db,
+                                       hs, st0),
                      follower.gate_plain,
                      (x, aa, ra, thr, rng_db, hs, *st0.unbind(-1))),
         }
@@ -278,11 +343,7 @@ def check_dynamics(dev, rng, record):
             if plain_dev.type == "cuda":
                 torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
-            if name == "gate":  # (state [B, 3], gains) vs ((env, hold, gain), gains)
-                want = (torch.stack(want[0], dim=-1), want[1])
-            else:  # (env_end, env)
-                want = tuple(want)
-            err = exact(f"{name} B={b} n={n}", got, want)
+            err = exact(f"{name} B={b} n={n}", got, plain_outputs(name, want))
             ms = time_ms(kernel_fn, 20)
             log(f"  {name} B={b} n={n}: max_abs_err {err:.3e} (bit for bit)  "
                 f"kernel {ms:.4f} ms  plain {plain_ms:.1f} ms on {plain_dev.type}")
@@ -295,27 +356,159 @@ def check_dynamics(dev, rng, record):
             record(name, "mastering" if n == BLOCK else None,
                    (err, ms, plain_ms),
                    nbytes(x, *got) + sum(nbytes(a) for a in args[1:]),
-                   OPS_PER_SAMPLE[name] * b * n, shape=f"B={b} n={n}",
+                   OPS_PER_SAMPLE[name] * b * n, kernel_fn, f"B={b} n={n}",
                    plain_device=plain_dev.type, serial_chain_ms=serial_ms)
+    for b, n, kind in GATE_EDGES:
+        streams = gate_edge_streams(rng, dev, b, n, kind)
+        st0 = torch.stack([torch.linspace(-120.0, -20.0, b, device=dev),
+                           torch.linspace(0.0, 3.0, b, device=dev),
+                           torch.full((b,), -60.0, device=dev)], dim=-1)
+        got = follower.gate(*streams, st0)
+        want = follower.gate_plain(*streams, *st0.unbind(-1))
+        exact(f"gate B={b} n={n} {kind}", got, plain_outputs("gate", want))
+        log(f"  gate B={b} n={n} {kind}: bit for bit")
+
+
+def plain_outputs(name, want):
+    """The plain version's outputs in the kernel wrapper's layout."""
+    if name == "gate":  # ((env, hold, gain), gains) -> (state [B, 3], gains)
+        return torch.stack(want[0], dim=-1), want[1]
+    return tuple(want)  # (env_end, env)
+
+
+# the gate kernel's tile and its target ring of two tiles (csrc/follower.cu)
+GATE_TILE = 1024
+GATE_EDGES = [(1, n, "random") for n in (
+    3, 5, GATE_TILE - 1, GATE_TILE, GATE_TILE + 1,
+    2 * GATE_TILE - 1, 2 * GATE_TILE, 2 * GATE_TILE + 1)] + [
+    (2, 1100, "hold 0"), (2, 1100, "hold 1"), (1, 1101, "flip"),
+    (1, 1100, "expire -1"), (1, 1100, "expire 0"), (1, 1100, "expire +1")]
+
+
+def gate_edge_streams(rng, dev, b, n, kind):
+    """The gate's six streams [b, n] for one edge case: "random" (the
+    dynamics_streams inputs), "hold H" (hold_samples H), "flip" (an instant
+    follower over 0 / -90 dB on alternate samples, no hold: open and closed
+    on consecutive samples), "expire D" (an instant follower open up to a
+    sample whose 100-sample hold ends D samples from the second tile's
+    start: the range first applies at sample GATE_TILE + D)."""
+    x, aa, ra, thr, rng_db, hs = dynamics_streams(rng, dev, b, n)
+    if kind.startswith("hold"):
+        hs.fill_(float(kind.split()[1]))
+    elif kind == "flip":
+        x = torch.where(torch.arange(n, device=dev) % 2 == 0, 0.0, -90.0
+                        ).expand(b, n).contiguous()
+        aa.fill_(1.0), ra.fill_(1.0), hs.fill_(0.0)
+    elif kind.startswith("expire"):
+        hold = 100
+        last_open = GATE_TILE + int(kind.split()[1]) - hold - 1
+        x = torch.full((b, n), -90.0, device=dev)
+        x[:, :last_open + 1] = 0.0
+        aa.fill_(1.0), ra.fill_(1.0), hs.fill_(float(hold))
+    return x, aa, ra, thr, rng_db, hs
+
+
+SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)\s*([^;]*);")
+SASS_REG = re.compile(r"\bR(\d+)\b")
+CHAIN_OPCODES = ("FSETP", "FSEL", "FMUL", "FADD")
+
+
+def sass_summary(lib_path):
+    """One line per kernel of SASS_KERNELS from ``cuobjdump -sass``: its
+    shared loads and stores by width and, over the innermost loops whose
+    body holds the floating-point chain operations (compare, select,
+    multiply, add), the fewest instructions from a shared load to the first
+    instruction that reads it (through register moves, across the loop's
+    back edge).  A load issued that far ahead of its first use
+    keeps its latency off the dependent floating-point path as long as
+    those instructions take longer to issue than the load takes to land."""
+    cuobjdump = Path(kernels._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out = []
+    for chunk in text.split("Function : ")[1:]:
+        fname = chunk.split(None, 1)[0]
+        kernel = next((k for k in SASS_KERNELS if k in fname), None)
+        if kernel is None:
+            continue
+        insns = [(int(m[1], 16), m[3], m[4]) for m in SASS_INSN.finditer(chunk)]
+        counts = {}
+        for _, op, _ in insns:
+            if op.startswith(("LDS", "STS")):
+                counts[op] = counts.get(op, 0) + 1
+        loops = []
+        for addr, op, args in insns:
+            target = re.match(r"0x([0-9a-f]+)", args.strip())
+            if op == "BRA" and target and int(target[1], 16) < addr:
+                loops.append((int(target[1], 16), addr))
+        innermost = [(lo, hi) for lo, hi in loops
+                     if not any(lo <= a < b <= hi and (a, b) != (lo, hi)
+                                for a, b in loops)]
+        chain_loops, loads, nearest = 0, 0, None
+        for lo, hi in innermost:
+            body = [x for x in insns if lo <= x[0] <= hi]
+            if not all(any(o.startswith(c) for _, o, _ in body)
+                       for c in CHAIN_OPCODES):
+                continue
+            chain_loops += 1
+            for k, (_, o, _) in enumerate(body):
+                if o.startswith("LDS"):
+                    loads += 1
+                    d = _first_use(body, k)
+                    if d is not None and (nearest is None or d < nearest):
+                        nearest = d
+        out.append(f"  {kernel} SASS: {len(insns)} instructions, shared "
+                   f"{dict(sorted(counts.items()))}; {chain_loops} innermost "
+                   f"chain loops with {loads} shared loads, the nearest use "
+                   f"{nearest} instructions after its load")
+    return out or [f"  none of {SASS_KERNELS} in the library"]
+
+
+def _first_use(body, k):
+    """Instructions from the shared load body[k] to the first instruction
+    that reads what it loaded (directly or through register moves), going
+    round the loop body once; None if none does before the registers are
+    overwritten."""
+    _, op, args = body[k]
+    first = SASS_REG.search(args)
+    if first is None:
+        return None
+    width = {"LDS.64": 2, "LDS.128": 4}.get(op.replace(".U", ""), 1)
+    regs = {int(first[1]) + w for w in range(width)}
+    for d in range(1, len(body)):
+        _, o, a = body[(k + d) % len(body)]
+        found = [int(r) for r in SASS_REG.findall(a)]
+        # the first operand is written when it is a register (stores:
+        # an address, read)
+        dest = SASS_REG.fullmatch(a.split(",")[0].strip())
+        if dest and not o.startswith("ST"):
+            reads, writes = set(found[1:]), {found[0]}
+        else:
+            reads, writes = set(found), set()
+        if regs & reads and o.startswith("MOV"):
+            regs |= writes
+        elif regs & reads:
+            return d
+        else:
+            regs -= writes
+        if not regs:
+            return None
+    return None
 
 
 def render_path(name, make_program, dev, kernels_used, blocks=4):
     """Render ``blocks`` blocks of a program on the card after one warm-up
     block, with the launch counters set to 0 just before; check the launches,
     the audio, and blocks 0-1 against the same program on the CPU.  Returns
-    the launches of this run."""
+    the launches of this run and the program."""
     prog = make_program(dev)
     prog.render(BLOCK)  # warm-up: allocator and library start-up
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    audio = prog.render(blocks * BLOCK)
-    wall = time.perf_counter() - t0
+    audio = timed_render(prog, blocks)
     launches = {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
-    log(f"  rendered {blocks} x {BLOCK} frames in {wall:.3f} s: "
-        f"{blocks * BLOCK / SR / wall:.1f} audio-seconds per second; "
-        f"launches {launches}")
+    log(f"    launches {launches}")
     idle = [k for k in kernels_used if launches[k] <= 0]
     if idle:
         raise RuntimeError(f"{name}: kernels of the path never launched: {idle}")
@@ -335,11 +528,21 @@ def render_path(name, make_program, dev, kernels_used, blocks=4):
             f"{20 * np.log10(max(err, 1e-30) / rpeak):.1f} dB")
         if not err <= DB90 * rpeak:
             raise RuntimeError(f"{name}: block {b} disagrees with the CPU render")
-    device_busy(prog)
-    return launches
+    return launches, prog
 
 
-def device_busy(prog):
+def timed_render(prog, blocks):
+    """Render ``blocks`` blocks on the host clock and log the rate."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio = prog.render(blocks * BLOCK)
+    wall = time.perf_counter() - t0
+    log(f"  rendered {blocks} x {BLOCK} frames in {wall:.3f} s: "
+        f"{blocks * BLOCK / SR / wall:.1f} audio-seconds per second")
+    return audio
+
+
+def device_busy(name, prog):
     """Render one block after a warm-up block under ``torch.profiler`` and
     log its device operations, device time, wall time and busy share."""
     state, _ = prog.step(prog.init_state(), prog.block_inputs(0))
@@ -351,7 +554,7 @@ def device_busy(prog):
         wall_ms = (time.perf_counter() - t0) * 1e3
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
-    log(f"  one block under the profiler: {len(ops)} device operations, "
+    log(f"  {name}: one block under the profiler: {len(ops)} device operations, "
         f"{device_ms:.2f} ms of device time in {wall_ms:.1f} ms of wall: "
         f"device busy {100 * device_ms / wall_ms:.1f} %")
 
@@ -379,6 +582,17 @@ def roll_cost(prog, dev, reps=200):
         f"{host_us:.1f} us per call")
 
 
+def kernel_times(measured, calls, reps=20):
+    """Each recorded call's kernel-only time (``kernel_time``), logged and
+    kept with its path's numbers."""
+    for name, path, label, fn in calls:
+        ms, per_call = kernel_time(name, fn, reps)
+        log(f"  {name} {label}: kernel-only {ms:.4f} ms, {per_call} "
+            f"launches per call")
+        if path is not None:
+            measured[name][path].update(kernel_ms=ms, launches_per_call=per_call)
+
+
 def kernel_report(measured, paths):
     """The kernels JSON object.  Top-level numbers are the mastering
     chain's, the path that runs all five kernels: its launches and each
@@ -393,8 +607,8 @@ def kernel_report(measured, paths):
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
             **{k: by_path["mastering"][k] for k in (
-                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by")},
+                "launches", "max_abs_err", "ms", "kernel_ms", "plain_ms",
+                "bound_ms", "bound_by")},
             # no single PyTorch call computes any of these functions
             "library_ms": None, "by_path": by_path})
     return report
@@ -420,19 +634,29 @@ def main():
     kernels.library()
     log(f"  built {path.name} in {time.perf_counter() - t0:.1f} s")
     log((path.parent / "build.log").read_text().strip())
+    for line in sass_summary(path):
+        log(line)
 
     log("phase 2: kernels against their plain versions")
-    measured = check_kernels(dev)
-    paths = {}
+    measured, calls = check_kernels(dev)
+    paths, progs = {}, {}
     log("phase 3: headline graph on the card")
-    paths["headline"] = render_path(
+    paths["headline"], progs["headline"] = render_path(
         "headline", lambda d: mixer_graph_program(block_frames=BLOCK, device=d),
         dev, ("ramp_read", "iir2", "iir1"))
     log("phase 4: mastering chain on the card")
-    paths["mastering"] = render_path(
+    paths["mastering"], progs["mastering"] = render_path(
         "mastering", lambda d: mastering_program(block_frames=BLOCK, device=d),
         dev, tuple(COUNTERS))
-    roll_cost(mastering_program(block_frames=BLOCK, device=dev), dev)
+    roll_cost(progs["mastering"], dev)
+    # a profiler session leaves launches slower for the rest of the process,
+    # so every profiled number comes after the timed renders
+    log("phase 5: under the profiler")
+    for name, prog in progs.items():
+        device_busy(name, prog)
+    kernel_times(measured, calls)
+    log("  the headline graph again, after the profiler:")
+    timed_render(progs["headline"], 4)
 
     log(json.dumps(kernel_report(measured, paths)))
     log(json.dumps({"ok": True, "device": {

@@ -17,25 +17,51 @@
 // SMEM scratch.
 //
 // What bounds it here: the recurrence branches on its own state, so it is
-// no associative scan; each row is one dependent chain, about 4 operations
-// per sample for the follower (compare, select, subtract, multiply-add as
-// two rounded operations) and about 10 for the gate.  On one thread that
-// chain, not memory, sets the time: the bytes (3 or 6 input floats and one
-// output float per sample) would stream in well under a microsecond per
-// 131072 samples.
+// no associative scan; each row is one dependent chain.  The bytes (3 or 6
+// input floats and one output float per sample) would stream in well under
+// a microsecond per 131072 samples, so the longest loop-carried path sets
+// the time: 4 dependent operations per sample (compare, select, multiply,
+// add; the subtract runs beside the compare) at ~4 cycles each.
 //
-// Design: one block per row.  Its 256 threads stage each tile of kTile
-// samples of the row's input streams from device memory into shared memory
-// with coalesced 4-byte cp.async copies, double-buffered so the next tile
-// loads while this one runs; thread 0 runs the recurrence out of shared
+// Follower design: one block per row.  Its 256 threads stage each tile of
+// kTile samples of the row's input streams from device memory into shared
+// memory with coalesced 4-byte cp.async copies, double-buffered so the next
+// tile loads while this one runs; thread 0 runs the recurrence out of shared
 // memory into a shared output tile, which the block then stores coalesced.
 // So the serial thread never waits on device memory, only on its own chain.
+//
+// The gate carries three values, each depending only on its own previous
+// value and this sample's inputs: the envelope env (compare, select,
+// multiply, add: 4 deep), the hold counter (subtract, max, select: 3 deep)
+// and the gain gain_db (4 deep, reading target[i], which comes from env[i]
+// and hold[i-1] outside the gain's loop).  Its longest loop-carried path is
+// 4 operations, as the follower's, but one thread issuing all ~15
+// operations and 6 loads of a sample stays above the 16 cycles that path
+// needs, and a store into the shared array it loads from keeps the next
+// sample's loads behind it.  Gate design, one block per row:
+//   - a producer thread (warp 0) runs env and hold and writes target[i]
+//     into a ring of two tiles in shared memory; a consumer thread (warp 1,
+//     another scheduler) runs the gain over target, attack and release one
+//     tile behind, into an output tile of its own.  Both evaluate the
+//     follower step with its compare and select last (follow_late), so the
+//     select, not the compare, sits on the loop-carried path.  The
+//     producer issues about 16 instructions per sample, the consumer about
+//     9 (cuobjdump -sass), against one warp's one instruction per cycle;
+//   - both read their inputs as float4, one 16-byte load per stream per 4
+//     samples, loaded one group ahead into registers, and store targets
+//     and gains 4 at a time into arrays they never load from, so no shared
+//     load waits on the dependent floating-point path;
+//   - the other six warps stage tile t + 1 (4-byte cp.async, any row length
+//     and alignment) into a ring of four tile buffers and store the gains
+//     of tile t - 2 to device memory.  The block meets once per tile of
+//     kGateTile samples (one barrier), never per sample.
 //
 // Arithmetic: each step is written with __fsub_rn / __fmul_rn / __fadd_rn,
 // so nvcc cannot contract env + a * (in - env) into a fused multiply-add;
 // every operation rounds to float32 once, as in the plain PyTorch version
-// (ops/follower.py) and the JAX package's XLA scan, and the kernel agrees
-// with the plain version bit for bit.
+// (ops/follower.py) and the JAX package's XLA scan, and the kernels agree
+// with the plain versions bit for bit.  Splitting the gate's chains over
+// two threads keeps every operation and its order, so no rounding changes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,24 +100,6 @@ struct Follower {
   }
 };
 
-// v: input_db, attack, release, threshold, range_db, hold_samples.
-// st: env, hold, gain_db.  Returns the gain in dB.
-struct Gate {
-  static constexpr int kStreams = 6;
-  static constexpr int kState = 3;
-  __device__ __forceinline__ static float step(float* st, const float* v) {
-    const float env = follow(st[0], v[0], v[1], v[2]);
-    const float hold = st[1];
-    const bool is_open = env >= v[3];
-    const float target = (is_open || hold > 0.0f) ? 0.0f : v[4];
-    st[1] = is_open ? v[5] : fmaxf(__fsub_rn(hold, 1.0f), 0.0f);
-    const float a = target > st[2] ? v[1] : v[2];
-    st[2] = __fadd_rn(st[2], __fmul_rn(a, __fsub_rn(target, st[2])));
-    st[0] = env;
-    return st[2];
-  }
-};
-
 template <int K>
 struct Streams {
   const float* p[K];
@@ -102,14 +110,21 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * M::kStreams + 1) * kTile;
 }
 
-// Copy samples [t0, t0 + len) of each stream of this row into stage[k][.].
+// Copy samples [t0, t0 + len) of each stream of this row into
+// stage[k * stride + .], threads first, first + step, ... of the block.
+template <int K>
+__device__ __forceinline__ void stage_tile(float* stage, int stride,
+                                           const Streams<K>& rows, long long t0,
+                                           int len, int first, int step) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    for (int i = first; i < len; i += step)
+      cp_async4(stage + k * stride + i, rows.p[k] + t0 + i);
+}
 template <int K>
 __device__ __forceinline__ void stage_tile(float* stage, const Streams<K>& rows,
                                            long long t0, int len) {
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    for (int i = threadIdx.x; i < len; i += blockDim.x)
-      cp_async4(stage + k * kTile + i, rows.p[k] + t0 + i);
+  stage_tile<K>(stage, kTile, rows, t0, len, threadIdx.x, blockDim.x);
 }
 
 template <class M>
@@ -166,6 +181,175 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------- gate
+
+constexpr int kGateTile = 1024;
+// staged input tiles: the loaders stage tile t + 1 while the producer may
+// still run tile t - 1 and the consumer tile t - 2, and tile t lands
+constexpr int kGateStages = 4;
+// one stream of a staged tile or of the target ring; 4 floats of slack let
+// the producer and the consumer load the group after a tile's last one
+// without a bounds check
+constexpr int kGateStride = kGateTile + 4;
+// input_db, attack, release, threshold, range_db, hold_samples
+constexpr int kGateStreams = 6;
+constexpr int kLoaderFirst = 64;  // warps 2.. stage and store
+
+constexpr size_t gate_smem_bytes() {
+  // staged tiles, the target ring [2][kGateStride], the gain tiles [2][tile]
+  return sizeof(float) *
+         ((kGateStages * kGateStreams + 2) * kGateStride + 2 * kGateTile);
+}
+
+// follow() with the same rounded operations in another order: both
+// candidate envelopes first, the compare-and-select last.  The
+// loop-carried path becomes subtract, multiply, add, select, with the
+// compare beside the arithmetic.  On an H100 it ran the gate's two chains
+// faster than follow() and the follower's single one slower (PERF.md).
+__device__ __forceinline__ float follow_late(float env, float in, float attack,
+                                             float release) {
+  const float d = __fsub_rn(in, env);
+  const float up = __fadd_rn(env, __fmul_rn(attack, d));
+  const float down = __fadd_rn(env, __fmul_rn(release, d));
+  return in > env ? up : down;
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float elem(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// env and hold one sample on; returns the target gain (0 dB or the range)
+__device__ __forceinline__ float gate_target(float& env, float& hold, float in,
+                                             float attack, float release,
+                                             float threshold, float range,
+                                             float hold_samples) {
+  env = follow_late(env, in, attack, release);
+  const bool is_open = env >= threshold;
+  const float target = (is_open || hold > 0.0f) ? 0.0f : range;
+  hold = is_open ? hold_samples : fmaxf(__fsub_rn(hold, 1.0f), 0.0f);
+  return target;
+}
+
+// Producer: env and hold over one staged tile (streams at in + k *
+// kGateStride), targets into tgt[0, len).
+__device__ __forceinline__ void gate_produce(const float* in, float* tgt,
+                                             int len, float& env, float& hold) {
+  constexpr int S = kGateStride;
+  float4 x = lds4(in), aa = lds4(in + S), ra = lds4(in + 2 * S),
+         thr = lds4(in + 3 * S), rng = lds4(in + 4 * S), hs = lds4(in + 5 * S);
+  int i = 0;
+  for (; i + 4 <= len; i += 4) {
+    const int j = i + 4;  // the next group, loaded before this one runs
+    const float4 nx = lds4(in + j), naa = lds4(in + S + j),
+                 nra = lds4(in + 2 * S + j), nthr = lds4(in + 3 * S + j),
+                 nrng = lds4(in + 4 * S + j), nhs = lds4(in + 5 * S + j);
+    float4 t;
+    t.x = gate_target(env, hold, x.x, aa.x, ra.x, thr.x, rng.x, hs.x);
+    t.y = gate_target(env, hold, x.y, aa.y, ra.y, thr.y, rng.y, hs.y);
+    t.z = gate_target(env, hold, x.z, aa.z, ra.z, thr.z, rng.z, hs.z);
+    t.w = gate_target(env, hold, x.w, aa.w, ra.w, thr.w, rng.w, hs.w);
+    *reinterpret_cast<float4*>(tgt + i) = t;
+    x = nx, aa = naa, ra = nra, thr = nthr, rng = nrng, hs = nhs;
+  }
+  for (int j = 0; i < len; ++i, ++j)  // ragged end of the last tile
+    tgt[i] = gate_target(env, hold, elem(x, j), elem(aa, j), elem(ra, j),
+                         elem(thr, j), elem(rng, j), elem(hs, j));
+}
+
+// Consumer: the gain over one tile's targets, attack and release, into
+// out[0, len).
+__device__ __forceinline__ void gate_consume(const float* in, const float* tgt,
+                                             float* out, int len, float& gain) {
+  constexpr int S = kGateStride;
+  float4 t = lds4(tgt), aa = lds4(in + S), ra = lds4(in + 2 * S);
+  int i = 0;
+  for (; i + 4 <= len; i += 4) {
+    const int j = i + 4;
+    const float4 nt = lds4(tgt + j), naa = lds4(in + S + j),
+                 nra = lds4(in + 2 * S + j);
+    float4 g;
+    g.x = gain = follow_late(gain, t.x, aa.x, ra.x);
+    g.y = gain = follow_late(gain, t.y, aa.y, ra.y);
+    g.z = gain = follow_late(gain, t.z, aa.z, ra.z);
+    g.w = gain = follow_late(gain, t.w, aa.w, ra.w);
+    *reinterpret_cast<float4*>(out + i) = g;
+    t = nt, aa = naa, ra = nra;
+  }
+  for (int j = 0; i < len; ++i, ++j)
+    out[i] = gain = follow_late(gain, elem(t, j), elem(aa, j), elem(ra, j));
+}
+
+__global__ void __launch_bounds__(kThreads)
+    gate_kernel(Streams<kGateStreams> in, const float* __restrict__ st0,
+                float* __restrict__ out, float* __restrict__ st_out,
+                long long n) {
+  extern __shared__ float4 gate_smem4[];
+  float* stage = reinterpret_cast<float*>(gate_smem4);  // [4][6][kGateStride]
+  float* ring = stage + kGateStages * kGateStreams * kGateStride;
+  float* gains = ring + 2 * kGateStride;
+  const size_t row = blockIdx.x;
+  Streams<kGateStreams> rows;
+#pragma unroll
+  for (int k = 0; k < kGateStreams; ++k) rows.p[k] = in.p[k] + row * n;
+  float* orow = out + row * n;
+  const bool producer = threadIdx.x == 0;
+  const bool consumer = threadIdx.x == 32;
+  const bool loader = threadIdx.x >= kLoaderFirst;
+  float env = st0[row * 3], hold = st0[row * 3 + 1], gain = st0[row * 3 + 2];
+
+  const long long tiles = (n + kGateTile - 1) / kGateTile;
+  auto tile_len = [n](long long t) {
+    const long long rest = n - t * kGateTile;
+    return (int)(rest < kGateTile ? rest : kGateTile);
+  };
+  auto buf = [stage](long long t) {
+    return stage + (t % kGateStages) * kGateStreams * kGateStride;
+  };
+  if (loader) {
+    if (tiles > 0)
+      stage_tile<kGateStreams>(buf(0), kGateStride, rows, 0, tile_len(0),
+                               threadIdx.x - kLoaderFirst,
+                               blockDim.x - kLoaderFirst);
+    cp_async_commit();
+  }
+  // iteration t: the producer runs tile t, the consumer tile t - 1, the
+  // loaders stage tile t + 1 and store the gains of tile t - 2
+  for (long long t = 0; t < tiles + 2; ++t) {
+    if (loader) {
+      // buffer t + 1 last held tile t - 3, done before the last barrier
+      if (t + 1 < tiles)
+        stage_tile<kGateStreams>(buf(t + 1), kGateStride, rows,
+                                 (t + 1) * kGateTile, tile_len(t + 1),
+                                 threadIdx.x - kLoaderFirst,
+                                 blockDim.x - kLoaderFirst);
+      cp_async_commit();
+      cp_async_wait_all_but_one();
+    }
+    __syncthreads();
+    if (producer && t < tiles)
+      gate_produce(buf(t), ring + (t & 1) * kGateStride, tile_len(t), env,
+                   hold);
+    if (consumer && t >= 1 && t <= tiles)
+      gate_consume(buf(t - 1), ring + ((t - 1) & 1) * kGateStride,
+                   gains + ((t - 1) & 1) * kGateTile, tile_len(t - 1), gain);
+    if (loader && t >= 2) {
+      const float* g = gains + (t & 1) * kGateTile;  // tile t - 2
+      const int len = tile_len(t - 2);
+      for (int i = threadIdx.x - kLoaderFirst; i < len;
+           i += blockDim.x - kLoaderFirst)
+        orow[(t - 2) * kGateTile + i] = g[i];
+    }
+  }
+  if (producer) {
+    st_out[row * 3] = env;
+    st_out[row * 3 + 1] = hold;
+  }
+  if (consumer) st_out[row * 3 + 2] = gain;
+}
+
 template <class M>
 int launch(int device, Streams<M::kStreams> in, const float* st0, float* out,
            float* st_out, int rows, long long n, void* stream) {
@@ -199,7 +383,14 @@ extern "C" int phonic_gate(int device, const float* in_db, const float* attack,
                            const float* range_db, const float* hold_samples,
                            const float* state0, float* gains_db, float* state,
                            int rows, long long n, void* stream) {
-  return launch<Gate>(
-      device, {{in_db, attack, release, threshold, range_db, hold_samples}},
-      state0, gains_db, state, rows, n, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(gate_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)gate_smem_bytes());
+  if (err != cudaSuccess) return (int)err;
+  gate_kernel<<<rows, kThreads, gate_smem_bytes(), (cudaStream_t)stream>>>(
+      {{in_db, attack, release, threshold, range_db, hold_samples}}, state0,
+      gains_db, state, n);
+  return (int)cudaGetLastError();
 }

@@ -23,6 +23,12 @@ from .. import kernels
 iir1_launches = 0
 iir2_launches = 0
 
+# iir2's look-back scratch per (device, stream): [int32 tensor, last epoch].
+# Zeroed once when allocated or grown; each call then tags its flags with a
+# new epoch instead of clearing them.
+_iir2_scratch: dict = {}
+_EPOCHS = 1 << 30
+
 
 def _chunk_split(t: int) -> int:
     """Within-chunk length L ~ sqrt(t) (power of two), minimising the total
@@ -142,10 +148,24 @@ def iir1(a: torch.Tensor, b: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _iir2_epoch(device, stream: int, words: int):
+    """The look-back scratch of ``stream`` with at least ``words`` 32-bit
+    words, and the epoch of the next call on it."""
+    entry = _iir2_scratch.get((device, stream))
+    if entry is None or entry[0].numel() < words:
+        entry = [torch.zeros(words, dtype=torch.int32, device=device), 0]
+        _iir2_scratch[(device, stream)] = entry
+    entry[1] += 1
+    if entry[1] == _EPOCHS:  # flags of 2**30 calls ago would match again
+        entry[0].zero_()
+        entry[1] = 1
+    return entry[0], entry[1]
+
+
 def iir2(a11, a12, a21, a22, b1, b2, s0_1, s0_2):
     """Kernel 2 (``csrc/scan.cu``): ``s[n] = A[n] s[n-1] + b[n]`` over six
-    contiguous float32 CUDA streams [R, T] from ``(s0_1, s0_2)`` [R].
-    Returns (s1, s2), each [R, T]."""
+    contiguous float32 CUDA streams [R, T] from ``(s0_1, s0_2)`` [R], in one
+    launch.  Returns (s1, s2), each [R, T]."""
     global iir2_launches
     streams = (a11, a12, a21, a22, b1, b2)
     for x, name in zip(streams, ("a11", "a12", "a21", "a22", "b1", "b2")):
@@ -165,12 +185,13 @@ def iir2(a11, a12, a21, a22, b1, b2, s0_1, s0_2):
     if t == 0:
         return out1, out2
     lib = kernels.library()
-    scratch = torch.empty(lib.phonic_iir2_scratch(r, t), dtype=torch.float32,
-                          device=b1.device)
+    stream = kernels.stream_handle(b1)
+    scratch, epoch = _iir2_epoch(b1.device, stream,
+                                 lib.phonic_iir2_scratch(r, t))
     err = lib.phonic_iir2(b1.device.index, *(x.data_ptr() for x in streams),
                           s0_1.data_ptr(), s0_2.data_ptr(), out1.data_ptr(),
-                          out2.data_ptr(), scratch.data_ptr(), r, t,
-                          kernels.stream_handle(b1))
+                          out2.data_ptr(), scratch.data_ptr(), r, t, epoch,
+                          stream)
     kernels.check(err, "iir2")
     iir2_launches += 1
     return out1, out2

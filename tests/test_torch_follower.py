@@ -98,11 +98,62 @@ def test_follower_matches_jax(b, n):
         np.testing.assert_allclose(env_end[row], float(e_end), atol=ATOL)
 
 
+# the CUDA gate kernel's tile and its target ring of two tiles
+# (csrc/follower.cu)
+GATE_TILE = 1024
+
+
+def _gate_edge_streams(b, n, kind, seed):
+    """The gate's streams for one edge case of the kernel: "random" (as
+    _gate_streams), "hold H" (hold_samples H), "flip" (an instant follower
+    over 0 / -90 dB on alternate samples, no hold: open and closed on
+    consecutive samples), "expire D" (an instant follower open up to a
+    sample whose 100-sample hold ends D samples from the second tile's
+    start, so the range first applies at sample GATE_TILE + D)."""
+    x, aa, ra, thr, rng, hs = _gate_streams(b, n, seed)
+    if kind.startswith("hold"):
+        hs[:] = float(kind.split()[1])
+    elif kind == "flip":
+        x[:] = np.where(np.arange(n) % 2 == 0, 0.0, -90.0)
+        aa[:], ra[:], hs[:] = 1.0, 1.0, 0.0
+    elif kind.startswith("expire"):
+        hold = 100
+        last_open = GATE_TILE + int(kind.split()[1]) - hold - 1
+        x[:] = -90.0
+        x[:, :last_open + 1] = 0.0
+        aa[:], ra[:], hs[:] = 1.0, 1.0, float(hold)
+    return x, aa, ra, thr, rng, hs
+
+
 @pytest.mark.parametrize("b,n", [(1, 1000), (3, 1000), (1, 4096), (3, 4096)])
 def test_gate_matches_jax(b, n):
     streams = _gate_streams(b, n, seed=2 * n + b)
     st0 = np.stack([np.linspace(-120.0, -20.0, b), np.linspace(0.0, 100.0, b),
                     np.full(b, -60.0)], axis=-1).astype(np.float32)
+    _check_gate(streams, st0)
+
+
+@pytest.mark.parametrize("b,n,kind", [
+    (1, 5, "random"), (1, GATE_TILE - 1, "random"), (1, GATE_TILE, "random"),
+    (1, GATE_TILE + 1, "random"), (1, 2 * GATE_TILE - 1, "random"),
+    (1, 2 * GATE_TILE, "random"), (1, 2 * GATE_TILE + 1, "random"),
+    (2, 1100, "hold 0"), (2, 1100, "hold 1"), (1, 1101, "flip"),
+    (1, 1100, "expire -1"), (1, 1100, "expire 0"), (1, 1100, "expire +1")])
+def test_gate_edge_cases_match_jax(b, n, kind):
+    """The CUDA gate kernel's edge cases (chip_smoke.py holds the kernel to
+    gate_plain on them bit for bit): lengths at its tile and ring sizes and
+    one off, holds of 0 and 1 sample, a gate that flips on every sample,
+    holds that run out just before, at and after a tile boundary."""
+    streams = _gate_edge_streams(b, n, kind, seed=3 * n + b)
+    st0 = np.stack([np.linspace(-120.0, -20.0, b), np.linspace(0.0, 3.0, b),
+                    np.full(b, -60.0)], axis=-1).astype(np.float32)
+    _check_gate(streams, st0)
+
+
+def _check_gate(streams, st0):
+    """gate_plain against the float32 NumPy loop exactly, and against the
+    JAX Pallas kernel (interpret mode) and XLA scan to ATOL."""
+    b, n = streams[0].shape
     (env, hold, gain), gains = fo.gate_plain(*_t(*streams),
                                              *_t(*st0.T.copy()))
     got_state = np.stack([env.numpy(), hold.numpy(), gain.numpy()], axis=-1)

@@ -89,7 +89,10 @@ def test_first_order_matches_pallas_kernel(r, t):
     _close(got, _loop1(a, b, y0))
 
 
-@pytest.mark.parametrize("r,t", [(2, 1), (3, 500), (8, 2048)])
+# beside the kernel's segment (4096 samples) and one off, odd lengths (rows
+# that start unaligned), one row and forty
+@pytest.mark.parametrize("r,t", [(2, 1), (3, 500), (8, 2048), (1, 4095),
+                                 (1, 4096), (1, 4097), (3, 999), (40, 777)])
 def test_second_order_matches_pallas_kernel(r, t):
     args = _mk2(r, t, seed=t)
     s1, s2 = _port2(args)
@@ -148,3 +151,23 @@ def test_cpu_tensors_take_the_plain_version():
         scan.iir1(torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(y0))
     with pytest.raises(ValueError, match="CUDA"):
         scan.iir2(*(torch.as_tensor(x) for x in _mk2(2, 300, seed=4)))
+
+
+def test_iir2_scratch_epochs():
+    """The look-back scratch is zeroed only when allocated, grown or when
+    the 30-bit epoch would wrap; every other call gets the next epoch."""
+    dev = torch.device("cpu")
+    key = (dev, 12345)
+    scan._iir2_scratch.pop(key, None)
+    buf, epoch = scan._iir2_epoch(dev, 12345, 100)
+    assert epoch == 1 and buf.numel() == 100 and not buf.any()
+    buf.fill_(7)
+    again, epoch = scan._iir2_epoch(dev, 12345, 50)
+    assert epoch == 2 and again is buf and bool((buf == 7).all())
+    grown, epoch = scan._iir2_epoch(dev, 12345, 200)
+    assert epoch == 1 and grown.numel() == 200 and not grown.any()
+    grown.fill_(7)
+    scan._iir2_scratch[key][1] = scan._EPOCHS - 1
+    same, epoch = scan._iir2_epoch(dev, 12345, 200)
+    assert same is grown and epoch == 1 and not grown.any()
+    scan._iir2_scratch.pop(key)
