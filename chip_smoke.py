@@ -10,19 +10,25 @@ phase fails.  Phases:
 
 1. build ``phonic_tpu_torch/csrc/*.cu`` (sm_90a, one nvcc per source, in
    parallel) and print the build time, the compiler's register /
-   shared-memory report and, for the gate and iir2 kernels, a summary of
-   their machine code (``cuobjdump -sass``): shared loads by width, and how
-   far ahead of its first use each shared load of the chain loops is
-   issued;
+   shared-memory report and, for the gate, iir2, iir1 and ramp_read
+   kernels, a summary of their machine code
+   (``cuobjdump -sass``): shared and global loads and stores by width
+   (``cp.async`` is LDGSTS), and how far ahead of its first use each shared
+   load of the chain loops is issued;
 2. each kernel against its plain version on the same inputs, at the render
    paths' shapes and at ragged ones, with its time beside the plain
-   version's (CUDA events around the wrapper).  The follower and the gate
-   must agree with their plain versions exactly; at 131072 samples their
-   plain versions (a Python loop over time) run on a CPU copy of the card's
-   inputs.  The gate also runs edge cases: lengths at its tile and
-   target-ring sizes and one off, holds of 0 and 1 samples, a gate that
-   flips on every sample, and holds that run out just before, at and after
-   a tile boundary;
+   version's (CUDA events around the wrapper).  The ramp read also runs
+   unaligned rows with a ragged end (B=3, ch=2, N=4097), bench.py's 64
+   sampler voices over one shared 48000-frame tone (B=64, N=131072), and
+   lanes whose source index is out of range with NaN positions (both read
+   silence); the recurrences run at one and two segments and one off, odd
+   lengths (rows that start unaligned), one row and forty.  The follower and
+   the gate must agree with their plain versions exactly; at 131072
+   samples their plain versions (a Python loop over time) run on a CPU
+   copy of the card's inputs.  The gate also runs edge cases: lengths at
+   its tile and target-ring sizes and one off, holds of 0 and 1 samples, a
+   gate that flips on every sample, and holds that run out just before, at
+   and after a tile boundary;
 3. the headline graph (16 file sources -> 4 sub-mixers with EQ5 + chorus ->
    reverb + gain, 131072-frame blocks at 48 kHz stereo) rendered on the card
    through ``RenderProgram.render``: the launch counters of its kernels
@@ -37,14 +43,16 @@ phase fails.  Phases:
    slows the launches that follow it in the process): one more block of
    each path, which gives the device operations and device time per block
    and the device's busy share (device time over that block's wall time,
-   both under the profiler); each kernel's kernel-only device time at each
-   path's shape and iir2's at R=40 (the profiler's events of its own
-   launches, and their number per call); and the headline graph's rate
-   once more, after the profiler.
+   both under the profiler); each kernel's kernel-only device time (the
+   profiler's events of its own launches, and their number per call) and
+   its share of its bound, at each path's shape, at the byte-bound shapes
+   off the paths (iir2 and iir1 at R=40, ramp_read at B=64); and the
+   headline graph's rate once more, after the profiler.
 
 The line before the last is a JSON object with each kernel's numbers from
 this run: at top level those of the mastering chain, which runs all five
-kernels, and under ``by_path`` those of each path.  The last line is
+kernels, under ``by_path`` those of each path and under ``off_path`` those
+of the shapes timed off the paths.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -95,7 +103,7 @@ COUNTERS = {"ramp_read": (rampread, "launches"),
             "follower": (follower, "follower_launches"),
             "gate": (follower, "gate_launches")}
 # the kernels whose machine code phase 1 summarises
-SASS_KERNELS = ("gate_kernel", "iir2_kernel")
+SASS_KERNELS = ("gate_kernel", "iir2_kernel", "iir1_kernel", "ramp_read_kernel")
 SOURCES = {"ramp_read": ("phonic_tpu_torch/csrc/rampread.cu",
                          "phonic_tpu/ops/rampread.py:176"),
            "iir2": ("phonic_tpu_torch/csrc/scan.cu",
@@ -210,41 +218,76 @@ def ramp_positions(rng, lanes, n, frames):
     return p.astype(np.float32)
 
 
+def ramp_expected(src, smap, pos):
+    """The plain version with the kernel's guards: a lane whose source index
+    is outside [0, S), and a NaN position, read silence."""
+    ok = (smap >= 0) & (smap < src.shape[0])
+    want = rampread.ramp_read_plain(src, torch.where(ok, smap, 0),
+                                    torch.nan_to_num(pos, nan=-1e9))
+    return torch.where(ok[:, None, None], want, 0.0)
+
+
+# ramp_read cases: lanes, channels, sources, table frames (longest buffer +
+# guard), outputs, path, kind ("ramps": lane b reads source b, random
+# tables; "tone": every lane reads one 48000-frame tone, as bench.py:44-59's
+# 64 sampler voices; "bad": lanes 1 and B-1 read sources out of range, 5 %
+# of the positions are NaN)
+RAMP_CASES = (
+    (16, 1, 16, 26656, BLOCK, "headline", "ramps"),
+    (4, 1, 4, 48001, BLOCK, "mastering", "ramps"),
+    (16, 1, 16, 26656, 1000, None, "ramps"),
+    (16, 2, 16, 26656, BLOCK, None, "ramps"),
+    (16, 2, 16, 26656, 1000, None, "ramps"),
+    (3, 2, 3, 26656, 4097, None, "ramps"),
+    (64, 1, 1, 48001, BLOCK, None, "tone"),
+    (4, 2, 3, 5000, 4096, None, "bad"),
+    (4, 2, 3, 5000, 4097, None, "bad"))
+
+
 def check_kernels(dev):
     """Each kernel against its plain version at the shape each render path
-    gives it and at ragged ones.  Returns {kernel: {path: numbers}} and the
-    calls whose kernel-only time phase 5 takes: (kernel, path, label,
-    call), at the paths' shapes and iir2's at R=40."""
+    gives it and at ragged ones.  Returns {kernel: {path: numbers}},
+    {kernel: {shape: numbers}} of the shapes phase 5 times off the paths,
+    and the calls whose kernel-only time phase 5 takes: (kernel, shape,
+    call, numbers)."""
     rng = np.random.default_rng(0)
     results = {name: {} for name in COUNTERS}
+    off_path = {name: {} for name in COUNTERS}
     calls = []
 
-    def record(name, path, res, moved, ops, fn, label, **extra):
+    def record(name, path, res, moved, ops, fn, label, timed=False, **extra):
+        bound_ms, bound_by = bound(moved, ops)
+        nums = dict(max_abs_err=res[0], ms=res[1], plain_ms=res[2],
+                    bound_ms=bound_ms, bound_by=bound_by, shape=label, **extra)
         if path is not None:
-            bound_ms, bound_by = bound(moved, ops)
-            results[name][path] = dict(
-                max_abs_err=res[0], ms=res[1], plain_ms=res[2],
-                bound_ms=bound_ms, bound_by=bound_by, shape=label, **extra)
-        if path is not None or label == f"R=40 T={BLOCK}":
-            calls.append((name, path, label, fn))
+            results[name][path] = nums
+        elif timed:
+            off_path[name][label] = nums
+        if path is not None or timed:
+            calls.append((name, label, fn, nums))
 
-    # lanes, channels, table frames (longest buffer + guard), outputs, path
-    for lanes, ch, frames, n, path in (
-            (16, 1, 26656, BLOCK, "headline"), (4, 1, 48001, BLOCK, "mastering"),
-            (16, 1, 26656, 1000, None), (16, 2, 26656, BLOCK, None),
-            (16, 2, 26656, 1000, None)):
-        src = torch.as_tensor(rng.normal(size=(lanes, ch, frames)).astype(
-            np.float32), device=dev)
-        smap = torch.arange(lanes, dtype=torch.int32, device=dev)
+    for lanes, ch, sources, frames, n, path, kind in RAMP_CASES:
+        if kind == "tone":
+            tone = np.sin(2 * np.pi * 440 / SR * np.arange(frames - 1))
+            src = np.append(tone, 0.0).reshape(1, 1, frames)
+        else:
+            src = rng.normal(size=(sources, ch, frames))
+        src = torch.as_tensor(src.astype(np.float32), device=dev)
+        smap = torch.arange(lanes, dtype=torch.int32, device=dev) % sources
         pos = torch.as_tensor(ramp_positions(rng, lanes, n, frames), device=dev)
+        plain = rampread.ramp_read_plain
+        if kind == "bad":
+            smap[1], smap[-1] = sources + 2, -1
+            pos[torch.as_tensor(rng.random(pos.shape) < 0.05, device=dev)] = np.nan
+            plain = ramp_expected
         label = f"B={lanes} ch={ch} F={frames} N={n}"
         fn = functools.partial(rampread.ramp_read, src, smap, pos)
-        res = compare(f"ramp_read {label}", fn,
-                      lambda: rampread.ramp_read_plain(src, smap, pos),
-                      RAMP_TOL, relative=False)
+        res = compare(f"ramp_read {label} {kind}", fn,
+                      functools.partial(plain, src, smap, pos), RAMP_TOL,
+                      relative=False)
         # each output: a position, 4 taps and the Hermite sum
         record("ramp_read", path, res, nbytes(src, smap, pos) + 4 * lanes * ch * n,
-               20 * lanes * ch * n, fn, label)
+               20 * lanes * ch * n, fn, label, timed=kind == "tone")
 
     def uniform(lo, hi, shape):
         return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32),
@@ -269,18 +312,22 @@ def check_kernels(dev):
                       lambda: scan.chunked_second(*args), DB90, relative=True)
         # s = A s + b: 8 operations per sample; 2 outputs
         record("iir2", path, res, nbytes(*args) + 2 * 4 * r * t, 8 * r * t,
-               fn, f"R={r} T={t}")
+               fn, f"R={r} T={t}", timed=r == 40 and t == BLOCK)
+    # beside the paths' shapes: two segments (2 x 4096 samples) and one off,
+    # rows that start unaligned and cross a segment, forty rows
     for r, t, path in ((2, BLOCK, "headline"), (2, 8192, "mastering"),
-                       (2, 999, None), (7, BLOCK, None), (7, 999, None)):
+                       (2, 999, None), (7, BLOCK, None), (7, 999, None),
+                       (1, 8191, None), (1, 8192, None), (1, 8193, None),
+                       (1, 16385, None), (3, 8193, None), (40, BLOCK, None)):
         a, b, y0 = uniform(0.7, 0.999, (r, t)), normal((r, t)), normal(r)
         fn = functools.partial(scan.iir1, a, b, y0)
         res = compare(f"iir1 R={r} T={t}", fn,
                       lambda: scan.chunked_first(a, b, y0), DB90,
                       relative=True)
         record("iir1", path, res, nbytes(a, b, y0) + 4 * r * t, 2 * r * t,
-               fn, f"R={r} T={t}")
+               fn, f"R={r} T={t}", timed=r == 40)
     check_dynamics(dev, rng, record)
-    return results, calls
+    return results, off_path, calls
 
 
 def dynamics_streams(rng, dev, b, n):
@@ -415,9 +462,9 @@ CHAIN_OPCODES = ("FSETP", "FSEL", "FMUL", "FADD")
 
 def sass_summary(lib_path):
     """One line per kernel of SASS_KERNELS from ``cuobjdump -sass``: its
-    shared loads and stores by width and, over the innermost loops whose
-    body holds the floating-point chain operations (compare, select,
-    multiply, add), the fewest instructions from a shared load to the first
+    shared and global loads and stores by width and, over the innermost
+    loops whose body holds the floating-point chain operations (compare,
+    select, multiply, add), the fewest instructions from a shared load to the first
     instruction that reads it (through register moves, across the loop's
     back edge).  A load issued that far ahead of its first use
     keeps its latency off the dependent floating-point path as long as
@@ -435,7 +482,7 @@ def sass_summary(lib_path):
         insns = [(int(m[1], 16), m[3], m[4]) for m in SASS_INSN.finditer(chunk)]
         counts = {}
         for _, op, _ in insns:
-            if op.startswith(("LDS", "STS")):
+            if op.startswith(("LDS", "STS", "LDG", "STG")):
                 counts[op] = counts.get(op, 0) + 1
         loops = []
         for addr, op, args in insns:
@@ -458,7 +505,7 @@ def sass_summary(lib_path):
                     d = _first_use(body, k)
                     if d is not None and (nearest is None or d < nearest):
                         nearest = d
-        out.append(f"  {kernel} SASS: {len(insns)} instructions, shared "
+        out.append(f"  {kernel} SASS: {len(insns)} instructions, memory "
                    f"{dict(sorted(counts.items()))}; {chain_loops} innermost "
                    f"chain loops with {loads} shared loads, the nearest use "
                    f"{nearest} instructions after its load")
@@ -582,21 +629,22 @@ def roll_cost(prog, dev, reps=200):
         f"{host_us:.1f} us per call")
 
 
-def kernel_times(measured, calls, reps=20):
-    """Each recorded call's kernel-only time (``kernel_time``), logged and
-    kept with its path's numbers."""
-    for name, path, label, fn in calls:
+def kernel_times(calls, reps=20):
+    """Each recorded call's kernel-only time (``kernel_time``) and share of
+    its bound, logged and kept with its numbers."""
+    for name, label, fn, nums in calls:
         ms, per_call = kernel_time(name, fn, reps)
-        log(f"  {name} {label}: kernel-only {ms:.4f} ms, {per_call} "
-            f"launches per call")
-        if path is not None:
-            measured[name][path].update(kernel_ms=ms, launches_per_call=per_call)
+        nums.update(kernel_ms=ms, launches_per_call=per_call)
+        log(f"  {name} {label}: kernel-only {ms:.4f} ms, {per_call} launches "
+            f"per call, {100 * nums['bound_ms'] / ms:.1f} % of its "
+            f"{nums['bound_by']} bound ({nums['bound_ms']:.4f} ms)")
 
 
-def kernel_report(measured, paths):
+def kernel_report(measured, off_path, paths):
     """The kernels JSON object.  Top-level numbers are the mastering
     chain's, the path that runs all five kernels: its launches and each
-    kernel's numbers at its shape; ``by_path`` holds each path's."""
+    kernel's numbers at its shape; ``by_path`` holds each path's and
+    ``off_path`` those of the shapes timed off the paths."""
     report = {"kernels": []}
     for name in COUNTERS:
         by_path = measured[name]
@@ -610,7 +658,8 @@ def kernel_report(measured, paths):
                 "launches", "max_abs_err", "ms", "kernel_ms", "plain_ms",
                 "bound_ms", "bound_by")},
             # no single PyTorch call computes any of these functions
-            "library_ms": None, "by_path": by_path})
+            "library_ms": None, "by_path": by_path,
+            "off_path": off_path[name]})
     return report
 
 
@@ -638,7 +687,7 @@ def main():
         log(line)
 
     log("phase 2: kernels against their plain versions")
-    measured, calls = check_kernels(dev)
+    measured, off_path, calls = check_kernels(dev)
     paths, progs = {}, {}
     log("phase 3: headline graph on the card")
     paths["headline"], progs["headline"] = render_path(
@@ -654,11 +703,11 @@ def main():
     log("phase 5: under the profiler")
     for name, prog in progs.items():
         device_busy(name, prog)
-    kernel_times(measured, calls)
+    kernel_times(calls)
     log("  the headline graph again, after the profiler:")
     timed_render(progs["headline"], 4)
 
-    log(json.dumps(kernel_report(measured, paths)))
+    log(json.dumps(kernel_report(measured, off_path, paths)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

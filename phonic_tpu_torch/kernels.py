@@ -34,8 +34,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "phonic_ramp_read": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    "phonic_iir1": ([_I, _P, _P, _P, _P, _P, _I, _L, _P], _I),
-    "phonic_iir2": ([_I] + [_P] * 11 + [_I, _L, ctypes.c_uint, _P], _I),
+    "phonic_iir1": ([_I] + [_P] * 5 + [_L, _I, _L, ctypes.c_uint, _P], _I),
+    "phonic_iir2": ([_I] + [_P] * 11 + [_L, _I, _L, ctypes.c_uint, _P], _I),
     "phonic_iir1_scratch": ([_I, _L], _L),
     "phonic_iir2_scratch": ([_I, _L], _L),
     "phonic_follower": ([_I] + [_P] * 6 + [_I, _L, _P], _I),

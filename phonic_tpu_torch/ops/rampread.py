@@ -5,7 +5,8 @@ Lane b of a batch reads source ``smap[b]`` of a table of planar buffers at
 fractional positions.  On the TPU this was a Pallas kernel over packed,
 overlapped 124-stride rows with one-hot MXU tap selection, because gathers
 ran at scalar rate there.  On the GPU a gather is cheap: the buffers stay
-planar and :func:`ramp_read` launches ``csrc/rampread.cu`` for CUDA tensors;
+planar and :func:`ramp_read` launches ``csrc/rampread.cu`` for CUDA tensors
+(a warp per 128 consecutive outputs of a lane, the grid sized to the card);
 CPU tensors take the plain version, :func:`ramp_read_plain`
 (``hermite_read`` over ``buffers[smap]``).
 
@@ -40,7 +41,8 @@ def ramp_read(buffers: torch.Tensor, smap: torch.Tensor,
     read 0; a zero guard frame per buffer keeps reads past the end silent).
     smap: [B] int32 — which buffer each lane reads (an index outside
     [0, S) reads silence on the CUDA path).
-    positions: [B, N] float32 fractional frame positions.
+    positions: [B, N] float32 fractional frame positions (NaN reads
+    silence on the CUDA path).
     Returns [B, ch, N] float32."""
     global launches
     if not positions.is_cuda:
@@ -55,8 +57,8 @@ def ramp_read(buffers: torch.Tensor, smap: torch.Tensor,
     if smap.shape[0] != b:
         raise ValueError(f"ramp_read: smap has {smap.shape[0]} lanes, "
                          f"positions {b}")
-    # lanes index the grid's y dimension; the other sizes pass as C ints
-    if not 0 < b <= 65535 or max(s, ch, frames, n) >= 2**31:
+    # the sizes pass as C ints, with room for the kernel's index arithmetic
+    if b == 0 or max(s, ch, frames, b, n) >= 2**30:
         raise ValueError(f"ramp_read: unsupported sizes S={s} ch={ch} "
                          f"F={frames} B={b} N={n}")
     out = torch.empty((b, ch, n), dtype=torch.float32, device=dev)

@@ -7,7 +7,9 @@ recurrence ``s[n] = A[n] s[n-1] + b[n]`` with per-sample coefficients.
 Routing is by the device of the tensors:
 
 - CUDA tensors run the hand-written kernels in ``csrc/scan.cu``
-  (:func:`iir1` / :func:`iir2`), always, or raise;
+  (:func:`iir1` / :func:`iir2`), always, or raise.  Each call is one launch
+  of a single-pass scan with decoupled look-back, whose flags and records
+  live in a scratch kept per kernel, device and stream (:func:`_scan_epoch`);
 - CPU tensors run the plain PyTorch versions, the two-level chunked
   evaluation :func:`chunked_first` / :func:`chunked_second` (the same
   algorithm as the JAX package's ``_chunked_first`` / ``_chunked_second``).
@@ -23,10 +25,11 @@ from .. import kernels
 iir1_launches = 0
 iir2_launches = 0
 
-# iir2's look-back scratch per (device, stream): [int32 tensor, last epoch].
-# Zeroed once when allocated or grown; each call then tags its flags with a
-# new epoch instead of clearing them.
-_iir2_scratch: dict = {}
+# The look-back scratch per (kernel, device, stream): [int32 tensor, last
+# epoch].  Zeroed once when allocated or grown; each call then tags its
+# flags with a new epoch instead of clearing them.  The two kernels lay out
+# their records differently, so they never share a buffer.
+_scan_scratch: dict = {}
 _EPOCHS = 1 << 30
 
 
@@ -123,7 +126,8 @@ def chunked_second(a11, a12, a21, a22, b1, b2, s0_1, s0_2):
 
 def iir1(a: torch.Tensor, b: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
     """Kernel 3 (``csrc/scan.cu``): ``y[n] = a[n] y[n-1] + b[n]`` over
-    contiguous float32 CUDA streams ``a``, ``b`` [R, T] from ``y0`` [R]."""
+    contiguous float32 CUDA streams ``a``, ``b`` [R, T] from ``y0`` [R], in
+    one launch."""
     global iir1_launches
     for x, name in ((a, "a"), (b, "b")):
         kernels.require(x, f"iir1 {name}", ndim=2, device=b.device)
@@ -138,23 +142,24 @@ def iir1(a: torch.Tensor, b: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
     if t == 0:
         return out
     lib = kernels.library()
-    scratch = torch.empty(lib.phonic_iir1_scratch(r, t), dtype=torch.float32,
-                          device=b.device)
+    stream = kernels.stream_handle(b)
+    scratch, epoch = _scan_epoch("iir1", b.device, stream,
+                                 lib.phonic_iir1_scratch(r, t))
     err = lib.phonic_iir1(b.device.index, a.data_ptr(), b.data_ptr(),
                           y0.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                          r, t, kernels.stream_handle(b))
+                          scratch.numel(), r, t, epoch, stream)
     kernels.check(err, "iir1")
     iir1_launches += 1
     return out
 
 
-def _iir2_epoch(device, stream: int, words: int):
-    """The look-back scratch of ``stream`` with at least ``words`` 32-bit
-    words, and the epoch of the next call on it."""
-    entry = _iir2_scratch.get((device, stream))
+def _scan_epoch(kernel: str, device, stream: int, words: int):
+    """The look-back scratch of ``kernel`` on ``stream`` with at least
+    ``words`` 32-bit words, and the epoch of the next call on it."""
+    entry = _scan_scratch.get((kernel, device, stream))
     if entry is None or entry[0].numel() < words:
         entry = [torch.zeros(words, dtype=torch.int32, device=device), 0]
-        _iir2_scratch[(device, stream)] = entry
+        _scan_scratch[(kernel, device, stream)] = entry
     entry[1] += 1
     if entry[1] == _EPOCHS:  # flags of 2**30 calls ago would match again
         entry[0].zero_()
@@ -186,12 +191,12 @@ def iir2(a11, a12, a21, a22, b1, b2, s0_1, s0_2):
         return out1, out2
     lib = kernels.library()
     stream = kernels.stream_handle(b1)
-    scratch, epoch = _iir2_epoch(b1.device, stream,
+    scratch, epoch = _scan_epoch("iir2", b1.device, stream,
                                  lib.phonic_iir2_scratch(r, t))
     err = lib.phonic_iir2(b1.device.index, *(x.data_ptr() for x in streams),
                           s0_1.data_ptr(), s0_2.data_ptr(), out1.data_ptr(),
-                          out2.data_ptr(), scratch.data_ptr(), r, t, epoch,
-                          stream)
+                          out2.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                          r, t, epoch, stream)
     kernels.check(err, "iir2")
     iir2_launches += 1
     return out1, out2

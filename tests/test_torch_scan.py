@@ -104,7 +104,9 @@ def test_second_order_matches_pallas_kernel(r, t):
     _close(s2, l2)
 
 
-@pytest.mark.parametrize("r,t", [(2, 4096), (7, 4999), (2, 16384)])
+# rows past two of the kernel's 4096-sample segments
+@pytest.mark.parametrize("r,t", [(2, 4096), (7, 4999), (2, 16384), (1, 8193),
+                                 (3, 8193)])
 def test_first_order_matches_chunked_jax(r, t):
     a, b, y0 = _mk1(r, t, seed=t)
     got = _port1(a, b, y0)
@@ -153,21 +155,44 @@ def test_cpu_tensors_take_the_plain_version():
         scan.iir2(*(torch.as_tensor(x) for x in _mk2(2, 300, seed=4)))
 
 
-def test_iir2_scratch_epochs():
-    """The look-back scratch is zeroed only when allocated, grown or when
-    the 30-bit epoch would wrap; every other call gets the next epoch."""
+def _check_scratch_epochs(kernel):
+    """The look-back scratch of ``kernel`` is zeroed only when allocated,
+    grown or when the 30-bit epoch would wrap; every other call gets the
+    next epoch."""
     dev = torch.device("cpu")
-    key = (dev, 12345)
-    scan._iir2_scratch.pop(key, None)
-    buf, epoch = scan._iir2_epoch(dev, 12345, 100)
+    key = (kernel, dev, 12345)
+    scan._scan_scratch.pop(key, None)
+    buf, epoch = scan._scan_epoch(kernel, dev, 12345, 100)
     assert epoch == 1 and buf.numel() == 100 and not buf.any()
     buf.fill_(7)
-    again, epoch = scan._iir2_epoch(dev, 12345, 50)
+    again, epoch = scan._scan_epoch(kernel, dev, 12345, 50)
     assert epoch == 2 and again is buf and bool((buf == 7).all())
-    grown, epoch = scan._iir2_epoch(dev, 12345, 200)
+    grown, epoch = scan._scan_epoch(kernel, dev, 12345, 200)
     assert epoch == 1 and grown.numel() == 200 and not grown.any()
     grown.fill_(7)
-    scan._iir2_scratch[key][1] = scan._EPOCHS - 1
-    same, epoch = scan._iir2_epoch(dev, 12345, 200)
+    scan._scan_scratch[key][1] = scan._EPOCHS - 1
+    same, epoch = scan._scan_epoch(kernel, dev, 12345, 200)
     assert same is grown and epoch == 1 and not grown.any()
-    scan._iir2_scratch.pop(key)
+    scan._scan_scratch.pop(key)
+
+
+def test_iir2_scratch_epochs():
+    _check_scratch_epochs("iir2")
+
+
+def test_iir1_scratch_epochs():
+    """iir1's scratch keeps the same epochs, and never shares a buffer or an
+    epoch count with iir2's on the same device and stream: the two kernels
+    lay out their records differently."""
+    _check_scratch_epochs("iir1")
+    dev = torch.device("cpu")
+    one, e1 = scan._scan_epoch("iir1", dev, 777, 64)
+    two, e2 = scan._scan_epoch("iir2", dev, 777, 64)
+    assert one is not two and e1 == e2 == 1
+    one.fill_(5)
+    assert not two.any()
+    again, e1 = scan._scan_epoch("iir1", dev, 777, 64)
+    assert again is one and e1 == 2
+    assert scan._scan_epoch("iir2", dev, 777, 64) == (two, 2)
+    for kernel in ("iir1", "iir2"):
+        scan._scan_scratch.pop((kernel, dev, 777))
