@@ -1,7 +1,7 @@
 """GPU smoke test of the PyTorch port: build the CUDA kernels, check each
 against its plain PyTorch version on the card, then render the headline
-mixer graph and the mastering chain at full width on the card and check
-them.
+mixer graph, the mastering chain and the 64-voice sampler at full width on
+the card and check them.
 
     python3 chip_smoke.py
 
@@ -39,15 +39,20 @@ phase fails.  Phases:
    delay -> distortion -> limiter, 131072-frame blocks at 48 kHz stereo),
    checked the same way; all five kernels' counters must grow.  It also
    times one roll of the delay's window at its shapes;
-5. under ``torch.profiler``, after every timed render (a profiler session
+5. the sampler (bench.py's config 2: 64 voices with AHDSR envelopes over
+   one 48000-frame tone, 64 notes 480 frames apart, 131072-frame blocks at
+   48 kHz stereo), checked the same way; its generator pool reads every
+   voice in one ramp_read per block;
+6. under ``torch.profiler``, after every timed render (a profiler session
    slows the launches that follow it in the process): one more block of
-   each path, which gives the device operations and device time per block
-   and the device's busy share (device time over that block's wall time,
-   both under the profiler); each kernel's kernel-only device time (the
-   profiler's events of its own launches, and their number per call) and
-   its share of its bound, at each path's shape, at the byte-bound shapes
-   off the paths (iir2 and iir1 at R=40, ramp_read at B=64); and the
-   headline graph's rate once more, after the profiler.
+   each path, which gives the device operations, the host-to-device
+   copies and the device time per block and the device's busy share
+   (device time over that block's wall time, both under the profiler);
+   each kernel's kernel-only device time (the profiler's events of its own
+   launches, and their number per call) and its share of its bound, at
+   each path's shape and at the byte-bound shapes off the paths (iir2 and
+   iir1 at R=40); and the headline graph's rate once more, after the
+   profiler.
 
 The line before the last is a JSON object with each kernel's numbers from
 this run: at top level those of the mastering chain, which runs all five
@@ -74,6 +79,7 @@ from phonic_tpu_torch.effects.delay import DelayEffect
 from phonic_tpu_torch.headline import mixer_graph_program
 from phonic_tpu_torch.mastering import mastering_program
 from phonic_tpu_torch.ops import chrono, follower, rampread, scan
+from phonic_tpu_torch.sampler64 import sampler_program
 
 BLOCK = 131072
 SR = 48000
@@ -118,6 +124,14 @@ SOURCES = {"ramp_read": ("phonic_tpu_torch/csrc/rampread.cu",
 
 def log(*args):
     print(*args, flush=True)
+
+
+START = time.perf_counter()
+
+
+def phase(title):
+    """Log a phase's title with the seconds the script has run so far."""
+    log(f"phase {title} ({time.perf_counter() - START:.1f} s in)")
 
 
 def time_ms(fn, reps):
@@ -229,9 +243,9 @@ def ramp_expected(src, smap, pos):
 
 # ramp_read cases: lanes, channels, sources, table frames (longest buffer +
 # guard), outputs, path, kind ("ramps": lane b reads source b, random
-# tables; "tone": every lane reads one 48000-frame tone, as bench.py:44-59's
-# 64 sampler voices; "bad": lanes 1 and B-1 read sources out of range, 5 %
-# of the positions are NaN)
+# tables; "tone": every lane reads one 48000-frame tone, as the sampler
+# path's 64 voices do; "bad": lanes 1 and B-1 read sources out of range,
+# 5 % of the positions are NaN)
 RAMP_CASES = (
     (16, 1, 16, 26656, BLOCK, "headline", "ramps"),
     (4, 1, 4, 48001, BLOCK, "mastering", "ramps"),
@@ -239,7 +253,7 @@ RAMP_CASES = (
     (16, 2, 16, 26656, BLOCK, None, "ramps"),
     (16, 2, 16, 26656, 1000, None, "ramps"),
     (3, 2, 3, 26656, 4097, None, "ramps"),
-    (64, 1, 1, 48001, BLOCK, None, "tone"),
+    (64, 1, 1, 48001, BLOCK, "sampler", "tone"),
     (4, 2, 3, 5000, 4096, None, "bad"),
     (4, 2, 3, 5000, 4097, None, "bad"))
 
@@ -247,8 +261,8 @@ RAMP_CASES = (
 def check_kernels(dev):
     """Each kernel against its plain version at the shape each render path
     gives it and at ragged ones.  Returns {kernel: {path: numbers}},
-    {kernel: {shape: numbers}} of the shapes phase 5 times off the paths,
-    and the calls whose kernel-only time phase 5 takes: (kernel, shape,
+    {kernel: {shape: numbers}} of the shapes phase 6 times off the paths,
+    and the calls whose kernel-only time phase 6 takes: (kernel, shape,
     call, numbers)."""
     rng = np.random.default_rng(0)
     results = {name: {} for name in COUNTERS}
@@ -287,7 +301,7 @@ def check_kernels(dev):
                       relative=False)
         # each output: a position, 4 taps and the Hermite sum
         record("ramp_read", path, res, nbytes(src, smap, pos) + 4 * lanes * ch * n,
-               20 * lanes * ch * n, fn, label, timed=kind == "tone")
+               20 * lanes * ch * n, fn, label)
 
     def uniform(lo, hi, shape):
         return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32),
@@ -591,7 +605,8 @@ def timed_render(prog, blocks):
 
 def device_busy(name, prog):
     """Render one block after a warm-up block under ``torch.profiler`` and
-    log its device operations, device time, wall time and busy share."""
+    log its device operations, host-to-device copies, device time, wall
+    time and busy share."""
     state, _ = prog.step(prog.init_state(), prog.block_inputs(0))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -601,9 +616,10 @@ def device_busy(name, prog):
         wall_ms = (time.perf_counter() - t0) * 1e3
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
-    log(f"  {name}: one block under the profiler: {len(ops)} device operations, "
-        f"{device_ms:.2f} ms of device time in {wall_ms:.1f} ms of wall: "
-        f"device busy {100 * device_ms / wall_ms:.1f} %")
+    h2d = sum("HtoD" in e.name for e in ops)
+    log(f"  {name}: one block under the profiler: {len(ops)} device operations "
+        f"({h2d} host-to-device copies), {device_ms:.2f} ms of device time in "
+        f"{wall_ms:.1f} ms of wall: device busy {100 * device_ms / wall_ms:.1f} %")
 
 
 def roll_cost(prog, dev, reps=200):
@@ -677,7 +693,7 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
-    log("phase 1: build")
+    phase("1: build")
     t0 = time.perf_counter()
     path = kernels.library_path()
     kernels.library()
@@ -686,27 +702,32 @@ def main():
     for line in sass_summary(path):
         log(line)
 
-    log("phase 2: kernels against their plain versions")
+    phase("2: kernels against their plain versions")
     measured, off_path, calls = check_kernels(dev)
     paths, progs = {}, {}
-    log("phase 3: headline graph on the card")
+    phase("3: headline graph on the card")
     paths["headline"], progs["headline"] = render_path(
         "headline", lambda d: mixer_graph_program(block_frames=BLOCK, device=d),
         dev, ("ramp_read", "iir2", "iir1"))
-    log("phase 4: mastering chain on the card")
+    phase("4: mastering chain on the card")
     paths["mastering"], progs["mastering"] = render_path(
         "mastering", lambda d: mastering_program(block_frames=BLOCK, device=d),
         dev, tuple(COUNTERS))
     roll_cost(progs["mastering"], dev)
+    phase("5: the 64-voice sampler on the card")
+    paths["sampler"], progs["sampler"] = render_path(
+        "sampler", lambda d: sampler_program(block_frames=BLOCK, device=d),
+        dev, ("ramp_read",))
     # a profiler session leaves launches slower for the rest of the process,
     # so every profiled number comes after the timed renders
-    log("phase 5: under the profiler")
+    phase("6: under the profiler")
     for name, prog in progs.items():
         device_busy(name, prog)
     kernel_times(calls)
     log("  the headline graph again, after the profiler:")
     timed_render(progs["headline"], 4)
 
+    log(f"done in {time.perf_counter() - START:.1f} s")
     log(json.dumps(kernel_report(measured, off_path, paths)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

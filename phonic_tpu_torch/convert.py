@@ -3,11 +3,11 @@
 :func:`state_from_jax` takes a ``phonic_tpu`` ``RenderProgram`` state,
 fetched to numpy (``jax.device_get``), and returns the equivalent state of a
 port program built from the same graph description with the same node
-names.  Running state carries over: file positions, smoother states, filter
-states, delay windows, LFO and vibrato phases, reverb buffers.  Static data
-(source buffers, per-lane metadata) is not taken from the JAX state — the
-JAX package holds it packed for its chip — but comes from the port
-program's own graph.  This package never imports JAX; the argument is plain
+names.  Running state carries over: file positions, sampler voice
+positions, smoother states, filter states, delay windows, LFO and vibrato
+phases, reverb buffers.  Static data (source buffers, per-lane metadata) is
+not taken from the JAX state — the JAX package holds it packed for its
+chip — but comes from the port program's own graph.  This package never imports JAX; the argument is plain
 numpy.
 """
 
@@ -49,10 +49,11 @@ def _node(np_state, path: str):
 def state_from_jax(np_state, program):
     """Port state of ``program`` equal to the JAX state ``np_state``.
 
-    Where the JAX package batches (file sources in groups of two or more,
-    sibling effect chains), its state holds stacked lanes numbered in the
-    order the port enumerates its own banks and chains; where it does not,
-    the node's own entry is used and gets the port's lane dimension of 1."""
+    Where the JAX package batches (file sources and samplers in groups of
+    two or more, sibling effect chains), its state holds stacked lanes
+    numbered in the order the port enumerates its own banks, pools and
+    chains; where it does not, the node's own entry is used and gets the
+    port's lane dimension of 1."""
     template = program.init_state()
     smoothers = {key: _like(t, np_state["smoothers"][key], f"smoothers{key}")
                  for key, t in template["smoothers"].items()}
@@ -68,6 +69,16 @@ def state_from_jax(np_state, program):
                                   for p in batch.paths]) for k in keys}
         file_batches.append(_like(t, lanes, f"file_batches/{batch.paths[0]}"))
 
+    pools, gid = [], 0
+    for pool, t in zip(program.pools, template["pools"]):
+        if program.config.batch_sources and len(pool.paths) >= 2:
+            lanes = np_state["gen_batches"][gid]
+            gid += 1
+        else:
+            lanes = {k: np.stack([np.asarray(_node(np_state, p)[k])
+                                  for p in pool.paths]) for k in t}
+        pools.append(_like(t, lanes, f"pools/{pool.paths[0]}"))
+
     chains, gid = [], 0
     for c, t in zip(program.chains, template["chains"]):
         if len(c["mixers"]) >= 2:
@@ -78,4 +89,4 @@ def state_from_jax(np_state, program):
         chains.append([_like(ti, si, eps) for ti, si, eps in
                        zip(t, per_effect, c["effect_paths"][0])])
     return {"smoothers": smoothers, "file_batches": file_batches,
-            "chains": chains}
+            "pools": pools, "chains": chains}

@@ -1,5 +1,5 @@
-"""File-source lane banks (port of ``FileBatch`` from
-``phonic_tpu/graph/batching.py``).
+"""File-source lane banks and generator pools (port of ``FileBatch`` and
+``LeafBatch`` from ``phonic_tpu/graph/batching.py``).
 
 Homogeneous FileSources (same loop kind, endlessness, channel layout, fade
 flags and length bucket) render as one bank of lanes: stacked buffers, a
@@ -221,3 +221,83 @@ class FileBatch:
         audio = rampread.ramp_read(self.buffers, self.smap, pos)
         return new_state, self.lane_post(audio, mask, frame0, volume,
                                          panning, stop_at)
+
+
+class LeafBatch:
+    """A generator pool (port of ``LeafBatch`` from
+    ``phonic_tpu/graph/batching.py``): samplers with equal
+    ``source_batch_key`` render as one call of the first sampler's
+    ``process`` over a leading sampler dimension G, their voices as lanes
+    [G, V].
+
+    Each sampler's buffer is one row of the pool's table, zero-padded to
+    the longest (its live length rides in as ``_buf_frames``); ``smap`` maps
+    each voice lane to its sampler's row, so every voice of the pool reads
+    in one ``ramp_read`` per block.  The block's lowered voice arrays go to
+    the device in one host-to-device copy."""
+
+    def __init__(self, nodes: list, paths: list[str], ctx):
+        self.nodes = nodes
+        self.paths = paths
+        self.ctx = ctx
+        self.proto = nodes[0]
+        dev = ctx.device
+        fmax = max(s.buffer.frames for s in nodes)
+        table = np.zeros((len(nodes), self.proto.buffer.channels, fmax + 1),
+                         np.float32)
+        for i, s in enumerate(nodes):
+            table[i, :, : s.buffer.frames + 1] = np.asarray(s.buffer.data)
+        self.table = torch.as_tensor(table, device=dev)
+        self.smap = torch.arange(len(nodes), dtype=torch.int32,
+                                 device=dev).repeat_interleave(
+                                     self.proto.options.voices)
+
+    def init_state(self):
+        """Each sampler's voice positions, stacked: [G, V]."""
+        states = [s.init_state(self.ctx) for s in self.nodes]
+        return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+    def upload(self, lowered: list[dict]):
+        """The samplers' lowered inputs (one dict each) -> (tensors [G, ...]
+        on the device, the pool's step bound, the live segments of each
+        automation knot array).
+
+        Every array is stacked over the samplers; a sampler that lacks an
+        optional one (per-note automation knots, loop bounds) gets its
+        identity (knots past the block, zeros).  The int32 and float32
+        arrays pack into one int32 host array, float32 values by their
+        bits, which is copied to the device at once and split there."""
+        n = self.ctx.block_frames
+        smax = max(float(d["_smax"]) for d in lowered)
+        stacked, live = {}, {}
+        for k in sorted(set().union(*lowered) - {"_smax"}):
+            proto = np.asarray(next(d[k] for d in lowered if k in d))
+            ident = (np.full_like(proto, n) if k.endswith("_t")
+                     else np.zeros_like(proto))
+            a = np.stack([np.asarray(d.get(k, ident), proto.dtype)
+                          for d in lowered])
+            if a.dtype not in (np.int32, np.float32):
+                raise TypeError(f"{k}: lowered as {a.dtype}")
+            stacked[k] = a
+            if k.endswith("_t"):
+                live[k] = 1 + int((a < n).sum(axis=-1).max(initial=0))
+        flat = torch.as_tensor(np.concatenate(
+            [a.reshape(-1).view(np.int32) for a in stacked.values()]),
+            device=self.ctx.device)
+        out, off = {}, 0
+        for k, a in stacked.items():
+            t = flat[off:off + a.size].view(a.shape)
+            out[k] = t.view(torch.float32) if a.dtype == np.float32 else t
+            off += a.size
+        return out, smax, live
+
+    def read(self, positions):
+        """Every voice lane's read: [G*V, n] -> [G*V, ch, n]."""
+        return rampread.ramp_read(self.table, self.smap, positions)
+
+    def render(self, state, params, lowered: list[dict]):
+        """params: each sampler parameter [G, n]; lowered: each sampler's
+        ``lower_block_inputs``.  Returns (new state, out [G, ch, n])."""
+        voices, smax, live = self.upload(lowered)
+        return self.proto.process(state, params, voices, smax, live,
+                                  self.read, self.ctx)

@@ -7,7 +7,8 @@ renders one block at a time,
     step(state, block_inputs) -> (state, audio[channels, block])
 
 walking the graph in PyTorch on the program's device: every file-source
-group as one lane bank, every effect chain with a leading lane dimension
+group as one lane bank, every group of samplers as one generator pool,
+every effect chain with a leading lane dimension
 (sibling mixers with identical chains share one batched chain), and every
 parameter group's smoother as one batched computation.  Sample-accurate
 automation arrives as fixed-shape segment events per (node, parameter) per
@@ -30,9 +31,10 @@ import torch
 from ..config import DEFAULT_CONFIG, DEFAULT_INERTIA, EngineConfig, resolve_device
 from ..errors import NotFoundError
 from ..events import ParamTimeline
+from ..generators.sampler import Sampler
 from ..ops import smoothing
 from ..sources.file import NEVER, FileSource
-from .batching import FileBatch, group_key as _file_group_key
+from .batching import FileBatch, LeafBatch, group_key as _file_group_key
 from .mixer import Mixer
 from .nodes import BuildCtx, Node
 
@@ -95,6 +97,8 @@ class RenderProgram:
             device=self.device,
         )
         self._index_nodes()
+        for node in self.nodes.values():
+            node.prepare(self.ctx)
         # automation timelines per (path, param)
         self.timelines: dict[tuple[str, str], ParamTimeline] = {}
         for path, node in self.nodes.items():
@@ -127,7 +131,7 @@ class RenderProgram:
                 continue
             if path in self.nodes:
                 raise ValueError(f"duplicate node path {path}")
-            if kind == "source" and type(obj) is not FileSource:
+            if kind == "source" and type(obj) not in (FileSource, Sampler):
                 raise NotImplementedError(
                     f"{type(obj).__name__} sources are not ported yet")
             self.nodes[path] = obj
@@ -169,13 +173,20 @@ class RenderProgram:
 
     def _build_source_batches(self):
         """Every file source renders as a lane of a FileBatch: one bank per
-        group of homogeneous sources (one bank per source when
-        ``batch_sources`` is off)."""
+        group of homogeneous sources; every sampler as part of a generator
+        pool (LeafBatch): one pool per ``source_batch_key``.  With
+        ``batch_sources`` off, each source is a bank or pool of its own."""
         groups: dict[tuple, list[str]] = {}
+        pools: dict[tuple, list[str]] = {}
+        batch = self.config.batch_sources
         for i, path in enumerate(self.source_paths):
             node = self.nodes[path]
-            key = _file_group_key(node) if self.config.batch_sources else i
-            groups.setdefault(key, []).append(path)
+            if isinstance(node, Sampler):
+                key = node.source_batch_key(self.ctx) if batch else i
+                pools.setdefault(key, []).append(path)
+            else:
+                key = _file_group_key(node) if batch else i
+                groups.setdefault(key, []).append(path)
         self.file_batches: list[FileBatch] = []
         self._batch_rows: list[dict] = []
         for paths in groups.values():
@@ -183,6 +194,13 @@ class RenderProgram:
                 FileBatch([self.nodes[p] for p in paths], paths, self.ctx))
             self._batch_rows.append(
                 {pid: self._rows(paths, pid) for pid in ("VOLU", "PANN", "SPED")})
+        self.pools: list[LeafBatch] = []
+        self._pool_rows: list[dict] = []
+        for paths in pools.values():
+            pool = LeafBatch([self.nodes[p] for p in paths], paths, self.ctx)
+            self.pools.append(pool)
+            self._pool_rows.append(
+                {p.id: self._rows(paths, p.id) for p in pool.proto.PARAMS})
 
     def _build_effect_batches(self):
         """Collect effect chains.  Sibling mixers whose chains have
@@ -289,6 +307,7 @@ class RenderProgram:
             for c in self.chains]
         return {"smoothers": smoothers,
                 "file_batches": [b.init_state() for b in self.file_batches],
+                "pools": [p.init_state() for p in self.pools],
                 "chains": chains}
 
     def block_inputs(self, block_index: int):
@@ -377,6 +396,14 @@ class RenderProgram:
             new_batches.append(nb_state)
             for i, p in enumerate(batch.paths):
                 source_out[p] = out[i]
+        new_pools = []
+        for pi, pool in enumerate(self.pools):
+            params = {pid: rows(sel) for pid, sel in self._pool_rows[pi].items()}
+            pool_state, out = pool.render(state["pools"][pi], params,
+                                          [extra[p] for p in pool.paths])
+            new_pools.append(pool_state)
+            for i, p in enumerate(pool.paths):
+                source_out[p] = out[i]
 
         new_chains: list = [None] * len(self.chains)
 
@@ -422,7 +449,7 @@ class RenderProgram:
         if me in self._chain_of:
             audio = run_chain(self._chain_of[me], audio[None])[0]
         new_state = {"smoothers": new_smoothers, "file_batches": new_batches,
-                     "chains": new_chains}
+                     "pools": new_pools, "chains": new_chains}
         return new_state, audio
 
     # ------------------------------------------------------------------

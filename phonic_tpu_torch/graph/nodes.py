@@ -59,6 +59,13 @@ class Node:
         options."""
         return {p.id: p.default for p in self.PARAMS}
 
+    def prepare(self, ctx: BuildCtx) -> None:
+        """Called once by RenderProgram at construction, before any state
+        init or host lowering: receive the build context (sample rate,
+        block size) here.  Lowering hooks never fall back to a default
+        rate."""
+        return None
+
     def lower_block_inputs(self, block_start: int, block_len: int):
         """Host lowering hook: a dict of extra per-block numpy values that
         ``process`` receives in its params dict (keys start with '_')."""

@@ -1,5 +1,5 @@
-"""4-point Hermite resampling read (port of ``hermite_read`` from
-``phonic_tpu/ops/resample.py``).
+"""4-point Hermite resampling read and loop folds (port of
+``hermite_read`` and ``loop_fold`` from ``phonic_tpu/ops/resample.py``).
 
 Behavioural spec: reference src/utils/resampler/cubic.rs — 4-point
 3rd-order Hermite x-form (Niemitalo, deip.pdf p. 43, :121-142).  Every
@@ -25,8 +25,9 @@ def length_bucket(frames: int) -> int:
 
 def speed_bucket(max_step: float) -> int:
     """Power-of-two bucket exponent for a per-sample position step bound:
-    smax = 2**bucket >= max_step.  File sources clamp their steps to smax,
-    as the JAX package does for its windowed reads, so positions match."""
+    smax = 2**bucket >= max_step.  File sources and samplers clamp their
+    steps to smax, as the JAX package does for its windowed reads, so
+    positions match."""
     m = max(float(max_step), 1e-6)
     # exact powers of two stay in their own bucket (smax bounds inclusive)
     return int(min(max(math.ceil(math.log2(m) - 1e-9), 0), 6))
@@ -61,3 +62,26 @@ def hermite_read(buf: torch.Tensor, positions: torch.Tensor,
     c2 = ym1 - y0 * 2.5 + y1 * 2.0 - y2 * 0.5
     c3 = (y2 - ym1) * 0.5 + (y0 - y1) * 1.5
     return ((c3 * frac + c2) * frac + c1) * frac + c0
+
+
+def loop_fold(positions: torch.Tensor, loop_start, loop_end,
+              mode: str = "forward") -> torch.Tensor:
+    """Fold linear positions into a loop range.
+
+    forward:   start + (p - start) mod len        (wraps back to loop start)
+    pingpong:  triangle fold between start and end.
+    Positions before loop_start pass through unchanged (first pass).
+    ``torch.remainder`` is floored modulo, as ``jnp.mod``."""
+    p = positions.to(torch.float32)
+    start = torch.as_tensor(loop_start, dtype=torch.float32, device=p.device)
+    end = torch.as_tensor(loop_end, dtype=torch.float32, device=p.device)
+    length = torch.clamp(end - start, min=1e-6)
+    rel = p - start
+    if mode == "forward":
+        folded = start + torch.remainder(rel, length)
+    elif mode == "pingpong":
+        cycle = torch.remainder(rel, 2.0 * length)
+        folded = start + torch.where(cycle < length, cycle, 2.0 * length - cycle)
+    else:
+        raise ValueError(f"unknown loop mode {mode!r}")
+    return torch.where(p < start, p, folded)
