@@ -1,7 +1,7 @@
 """GPU smoke test of the PyTorch port: build the CUDA kernels, check each
 against its plain PyTorch version on the card, then render the headline
-mixer graph, the mastering chain and the 64-voice sampler at full width on
-the card and check them.
+mixer graph, the mastering chain, the 64-voice sampler and the play_file
+path at full width on the card and check them.
 
     python3 chip_smoke.py
 
@@ -43,7 +43,19 @@ phase fails.  Phases:
    one 48000-frame tone, 64 notes 480 frames apart, 131072-frame blocks at
    48 kHz stereo), checked the same way; its generator pool reads every
    voice in one ramp_read per block;
-6. under ``torch.profiler``, after every timed render (a profiler session
+6. the play_file path: (a) bench.py's config 1 (one endless 48000-frame
+   mono tone at speed 1.09, the default read, 262144-frame blocks) checked
+   the same way, one ramp_read per block; (b) a decoded file at the size
+   users play: a 180 s stereo 44.1 kHz 16-bit WAV written with the port's
+   ``write_wav`` from a fixed seed, loaded with
+   ``AudioFileBuffer.from_file`` (decode time logged) and rendered once at
+   ``resampling_quality="high"`` (the polyphase sinc read) to its natural
+   length with ``render(None)`` (rate logged) and through ``render_file``;
+   the WAV read back must hold exactly the natural length (computed here
+   from the source's span, rate and speed), be finite and not silent, and
+   its first two blocks must match the same program on the CPU to -90 dB;
+   the sinc read's time at that shape is logged;
+7. under ``torch.profiler``, after every timed render (a profiler session
    slows the launches that follow it in the process): one more block of
    each path, which gives the device operations, the host-to-device
    copies and the device time per block and the device's busy share
@@ -66,6 +78,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -77,12 +90,20 @@ from torch.profiler import ProfilerActivity, profile
 from phonic_tpu_torch import kernels
 from phonic_tpu_torch.effects.delay import DelayEffect
 from phonic_tpu_torch.headline import mixer_graph_program
+from phonic_tpu_torch.io import wav as wav_io
+from phonic_tpu_torch.io.decoder import AudioFileBuffer
 from phonic_tpu_torch.mastering import mastering_program
-from phonic_tpu_torch.ops import chrono, follower, rampread, scan
+from phonic_tpu_torch.ops import chrono, follower, rampread, resample, scan
+from phonic_tpu_torch.play_file import (
+    BLOCK_FRAMES as PLAY_BLOCK, file_program, play_file_program, render_file,
+)
 from phonic_tpu_torch.sampler64 import sampler_program
+from phonic_tpu_torch.sources.file import FilePlaybackOptions
 
 BLOCK = 131072
 SR = 48000
+# the decoded file of phase 6b: seconds, rate, channels
+FILE_SECS, FILE_SR, FILE_CH = 180, 44100, 2
 DB90 = 10.0 ** (-90.0 / 20.0)
 RAMP_TOL = 1e-5  # unit-scale data; FMA contraction vs the plain x-form
 # published H100 SXM peaks (NVIDIA data sheet): device memory rate, and the
@@ -244,9 +265,11 @@ def ramp_expected(src, smap, pos):
 # ramp_read cases: lanes, channels, sources, table frames (longest buffer +
 # guard), outputs, path, kind ("ramps": lane b reads source b, random
 # tables; "tone": every lane reads one 48000-frame tone, as the sampler
-# path's 64 voices do; "bad": lanes 1 and B-1 read sources out of range,
-# 5 % of the positions are NaN)
+# path's 64 voices do; "loop": one lane reads one 48000-frame tone looped
+# at speed 1.09, as config 1 does; "bad": lanes 1 and B-1 read sources out
+# of range, 5 % of the positions are NaN)
 RAMP_CASES = (
+    (1, 1, 1, 48001, PLAY_BLOCK, "play_file", "loop"),
     (16, 1, 16, 26656, BLOCK, "headline", "ramps"),
     (4, 1, 4, 48001, BLOCK, "mastering", "ramps"),
     (16, 1, 16, 26656, 1000, None, "ramps"),
@@ -261,8 +284,8 @@ RAMP_CASES = (
 def check_kernels(dev):
     """Each kernel against its plain version at the shape each render path
     gives it and at ragged ones.  Returns {kernel: {path: numbers}},
-    {kernel: {shape: numbers}} of the shapes phase 6 times off the paths,
-    and the calls whose kernel-only time phase 6 takes: (kernel, shape,
+    {kernel: {shape: numbers}} of the shapes phase 7 times off the paths,
+    and the calls whose kernel-only time phase 7 takes: (kernel, shape,
     call, numbers)."""
     rng = np.random.default_rng(0)
     results = {name: {} for name in COUNTERS}
@@ -281,14 +304,18 @@ def check_kernels(dev):
             calls.append((name, label, fn, nums))
 
     for lanes, ch, sources, frames, n, path, kind in RAMP_CASES:
-        if kind == "tone":
+        if kind in ("tone", "loop"):
             tone = np.sin(2 * np.pi * 440 / SR * np.arange(frames - 1))
             src = np.append(tone, 0.0).reshape(1, 1, frames)
         else:
             src = rng.normal(size=(sources, ch, frames))
         src = torch.as_tensor(src.astype(np.float32), device=dev)
         smap = torch.arange(lanes, dtype=torch.int32, device=dev) % sources
-        pos = torch.as_tensor(ramp_positions(rng, lanes, n, frames), device=dev)
+        if kind == "loop":
+            pos = np.mod(np.arange(n) * 1.09, frames - 1)[None]
+        else:
+            pos = ramp_positions(rng, lanes, n, frames)
+        pos = torch.as_tensor(pos.astype(np.float32), device=dev)
         plain = rampread.ramp_read_plain
         if kind == "bad":
             smap[1], smap[-1] = sources + 2, -1
@@ -558,49 +585,135 @@ def _first_use(body, k):
     return None
 
 
-def render_path(name, make_program, dev, kernels_used, blocks=4):
-    """Render ``blocks`` blocks of a program on the card after one warm-up
-    block, with the launch counters set to 0 just before; check the launches,
-    the audio, and blocks 0-1 against the same program on the CPU.  Returns
-    the launches of this run and the program."""
-    prog = make_program(dev)
-    prog.render(BLOCK)  # warm-up: allocator and library start-up
+def reset_counters():
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
-    audio = timed_render(prog, blocks)
+
+
+def read_counters():
     launches = {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
     log(f"    launches {launches}")
-    idle = [k for k in kernels_used if launches[k] <= 0]
+    return launches
+
+
+def render_path(name, make_program, dev, kernels_used, blocks=4):
+    """Render ``blocks`` blocks of a program on the card after one warm-up
+    block, with the launch counters set to 0 just before; check that each
+    kernel of the path launched at least once per block, the audio, and
+    blocks 0-1 against the same program on the CPU.  Returns the launches
+    of this run and the program."""
+    prog = make_program(dev)
+    n = prog.ctx.block_frames
+    prog.render(n)  # warm-up: allocator and library start-up
+    reset_counters()
+    audio = timed_render(prog, blocks)
+    launches = read_counters()
+    idle = [k for k in kernels_used if launches[k] < blocks]
     if idle:
-        raise RuntimeError(f"{name}: kernels of the path never launched: {idle}")
-    peak = float(np.abs(audio).max())
-    if audio.shape != (2, blocks * BLOCK) or not np.isfinite(audio).all():
+        raise RuntimeError(f"{name}: kernels of the path launched fewer "
+                           f"times than the {blocks} blocks: {idle}")
+    check_audio(name, audio, (2, blocks * n))
+    against_cpu(name, audio, make_program("cpu"))
+    return launches, prog
+
+
+def check_audio(name, audio, shape):
+    """Raise unless ``audio`` has ``shape``, is finite and is not silent."""
+    if audio.shape != shape or not np.isfinite(audio).all():
         raise RuntimeError(f"{name}: bad render: shape {audio.shape}")
+    peak = float(np.abs(audio).max())
     if peak < 0.05:
         raise RuntimeError(f"{name}: render is silent: peak {peak}")
+
+
+def against_cpu(name, audio, cpu_prog):
+    """Blocks 0-1 of a card render against the same program rendered on
+    the CPU, to -90 dB of each block's peak."""
+    n = cpu_prog.ctx.block_frames
     t0 = time.perf_counter()
-    ref = make_program("cpu").render(2 * BLOCK)
+    ref = cpu_prog.render(2 * n)
     log(f"  CPU reference render of 2 blocks: {time.perf_counter() - t0:.1f} s")
     for b in range(2):
-        sl = slice(b * BLOCK, (b + 1) * BLOCK)
+        sl = slice(b * n, (b + 1) * n)
         err = float(np.abs(audio[:, sl] - ref[:, sl]).max())
         rpeak = float(np.abs(ref[:, sl]).max())
         log(f"  block {b}: max_abs_err {err:.3e} vs CPU, peak {rpeak:.4f}, "
             f"{20 * np.log10(max(err, 1e-30) / rpeak):.1f} dB")
         if not err <= DB90 * rpeak:
             raise RuntimeError(f"{name}: block {b} disagrees with the CPU render")
-    return launches, prog
 
 
-def timed_render(prog, blocks):
-    """Render ``blocks`` blocks on the host clock and log the rate."""
+def timed_render(prog, blocks=None):
+    """Render ``blocks`` blocks (the natural length if None) on the host
+    clock and log the rate."""
+    n = prog.ctx.block_frames
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    audio = prog.render(blocks * BLOCK)
+    audio = prog.render(None if blocks is None else blocks * n)
     wall = time.perf_counter() - t0
-    log(f"  rendered {blocks} x {BLOCK} frames in {wall:.3f} s: "
-        f"{blocks * BLOCK / SR / wall:.1f} audio-seconds per second")
+    log(f"  rendered {audio.shape[-1]} frames ({n}-frame blocks) in "
+        f"{wall:.3f} s: {audio.shape[-1] / SR / wall:.1f} audio-seconds per "
+        "second")
     return audio
+
+
+def decoded_file(dev, tmp):
+    """Phase 6b: write a FILE_SECS s stereo 16-bit WAV at FILE_SR (partials
+    with slow sweeps from a fixed seed), decode it, render it at high
+    quality to its natural length, and check the render written through
+    ``render_file``.  Returns the program."""
+    rng = np.random.default_rng(6)
+    frames = FILE_SECS * FILE_SR
+    t = np.arange(frames) / FILE_SR
+    x = np.zeros((FILE_CH, frames), np.float32)
+    for c in range(FILE_CH):
+        for f0, sweep, amp in zip(rng.uniform(110, 880, 4),
+                                  rng.uniform(-1.0, 1.0, 4),
+                                  rng.uniform(0.05, 0.2, 4)):
+            x[c] += (amp * np.sin(2 * np.pi * (f0 * t + 0.5 * sweep * t * t))
+                     ).astype(np.float32)
+    src = Path(tmp) / "in.wav"
+    wav_io.write_wav(src, x, FILE_SR, bits=16, float_format=False)
+    log(f"  wrote {src.stat().st_size / 1e6:.1f} MB: {FILE_SECS} s, "
+        f"{FILE_CH} channels, {FILE_SR} Hz, 16-bit")
+    t0 = time.perf_counter()
+    buf = AudioFileBuffer.from_file(src)
+    log(f"  decoded in {time.perf_counter() - t0:.3f} s: {buf.frames} frames")
+    options = FilePlaybackOptions(resampling_quality="high", repeat=0)
+    prog = file_program(buf, options, PLAY_BLOCK, dev)
+    # FileSource.duration_frames from its definition: the span in source
+    # frames over the step per output frame, rounded up
+    want = int(np.ceil(frames / (FILE_SR / SR * max(options.speed, 1e-6))))
+    if prog.natural_duration_frames() != want:
+        raise RuntimeError(f"natural length {prog.natural_duration_frames()}, "
+                           f"expected {want}")
+    prog.render(PLAY_BLOCK)  # warm-up
+    reset_counters()
+    audio = timed_render(prog)
+    read_counters()
+    check_audio("decoded file", audio, (2, want))
+    pos = torch.as_tensor(np.arange(PLAY_BLOCK, dtype=np.float32)
+                          * np.float32(FILE_SR / SR), device=dev)[None]
+    table = prog.file_batches[0].sinc
+    ms = time_ms(lambda: resample.sinc_read(prog.file_batches[0].buffers, pos,
+                                            table), 20)
+    log(f"  sinc_read [1, {FILE_CH}, {buf.frames + 1}] at {PLAY_BLOCK} "
+        f"positions: {ms:.4f} ms (CUDA events, plain tensor operations)")
+    out = Path(tmp) / "out.wav"
+    t0 = time.perf_counter()
+    written = render_file(src, out, options, PLAY_BLOCK, dev)
+    log(f"  render_file (decode, render, write) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    back, info = wav_io.read_wav(out)
+    log(f"  read back {back.shape[-1]} frames at {info.sample_rate} Hz; "
+        f"natural length {want}")
+    if written != want or info.sample_rate != SR:
+        raise RuntimeError(f"render_file wrote {written} frames at "
+                           f"{info.sample_rate} Hz")
+    check_audio("render_file", back, (2, want))
+    against_cpu("decoded file", back, file_program(buf, options, PLAY_BLOCK,
+                                                   "cpu"))
+    return prog
 
 
 def device_busy(name, prog):
@@ -718,9 +831,15 @@ def main():
     paths["sampler"], progs["sampler"] = render_path(
         "sampler", lambda d: sampler_program(block_frames=BLOCK, device=d),
         dev, ("ramp_read",))
+    phase("6a: play_file, bench.py's config 1, on the card")
+    paths["play_file"], progs["play_file"] = render_path(
+        "play_file", lambda d: play_file_program(device=d), dev, ("ramp_read",))
+    phase("6b: play_file, a decoded 180 s file at high quality, on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        progs["decoded_file"] = decoded_file(dev, tmp)
     # a profiler session leaves launches slower for the rest of the process,
     # so every profiled number comes after the timed renders
-    phase("6: under the profiler")
+    phase("7: under the profiler")
     for name, prog in progs.items():
         device_busy(name, prog)
     kernel_times(calls)

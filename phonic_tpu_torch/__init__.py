@@ -16,13 +16,18 @@ from .effects.distortion import DistortionEffect
 from .effects.gate import GateEffect
 from .errors import (
     MediaFileError, NotFoundError, ParameterError, PhonicError,
+    UnsupportedFormatError,
 )
 from .generators.base import Generator, GeneratorPlaybackOptions
 from .generators.sampler import AhdsrConfig, Sampler
 from .graph.engine import RenderProgram
 from .graph.mixer import Mixer
-from .io.decoder import AudioFileBuffer
+from .io.decoder import (
+    AudioFileBuffer, AudioFileInfo, decode_file, file_info, register_decoder,
+)
 from .mastering import mastering_chain, mastering_program
+from .outputs.wav_out import WavOutput
+from .play_file import play_file_graph, play_file_program, render_file
 from .sampler64 import sampler_graph, sampler_program
 from .sources.file import FilePlaybackOptions, FileSource
 
@@ -33,5 +38,7 @@ __all__ = [
     "CompressorEffect", "DelayEffect", "DistortionEffect", "GateEffect",
     "mastering_chain", "mastering_program", "Generator",
     "GeneratorPlaybackOptions", "AhdsrConfig", "Sampler", "sampler_graph",
-    "sampler_program",
+    "sampler_program", "AudioFileInfo", "decode_file", "file_info",
+    "register_decoder", "UnsupportedFormatError", "WavOutput",
+    "play_file_graph", "play_file_program", "render_file",
 ]

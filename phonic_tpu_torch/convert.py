@@ -5,9 +5,10 @@ fetched to numpy (``jax.device_get``), and returns the equivalent state of a
 port program built from the same graph description with the same node
 names.  Running state carries over: file positions, sampler voice
 positions, smoother states, filter states, delay windows, LFO and vibrato
-phases, reverb buffers.  Static data (source buffers, per-lane metadata) is
-not taken from the JAX state — the JAX package holds it packed for its
-chip — but comes from the port program's own graph.  This package never imports JAX; the argument is plain
+phases, reverb buffers.  Static data (source buffers, per-lane metadata,
+a high-quality bank's sinc table) is not taken from the JAX state — the
+JAX package holds it packed for its chip — but comes from the port
+program's own graph.  This package never imports JAX; the argument is plain
 numpy.
 """
 
@@ -19,8 +20,9 @@ import torch
 
 def _like(template, value, where: str):
     """``value`` (numpy tree) shaped, typed and placed like ``template``
-    (tensor tree).  Walks the template, so keys the port does not keep
-    (packed buffers, metadata) are skipped."""
+    (tensor tree).  Walks the template's keys, so keys the port does not
+    keep in its state (a file bank's "buf", "meta" and "sinc") are skipped
+    by name."""
     if isinstance(template, torch.Tensor):
         arr = np.asarray(value)
         if arr.size != template.numel():

@@ -99,6 +99,23 @@ class ChorusEffect(Effect):
             "lfo_r": lfo_ops.lfo_init(0.0, device=dev),  # offset applied per block
         }
 
+    def tail_frames(self, ctx: BuildCtx) -> int:
+        """reference: chorus.rs:400-420."""
+        sr = ctx.sample_rate
+        depth_ms = MAX_RANGE_SAMPLES * 1000.0 / sr
+        total_ms = self.delay_ms + depth_ms
+        fb = abs(self.feedback)
+        if fb >= 1.0:
+            return int(10 * sr)
+        if fb < 0.001:
+            return int(math.ceil(total_ms * sr / 1000.0))
+        total = total_ms * sr / 1000.0
+        return max(int(math.ceil(total + total * math.log10(0.001) / math.log10(fb))), 1)
+
+    def max_tail_frames(self, ctx: BuildCtx) -> int:
+        # FEEDBACK is automatable to +-1.0 -> the "unknown tail" 10 s cap
+        return int(10 * ctx.sample_rate)
+
     def process(self, state, x, params, ctx: BuildCtx):
         if ctx.channels != 2:
             raise ValueError("ChorusEffect only supports stereo I/O")

@@ -73,6 +73,9 @@ class Eq5Effect(Effect):
                                                    device=ctx.device)
                 for i in range(5)}
 
+    def tail_frames(self, ctx: BuildCtx) -> int:
+        return ctx.sample_rate // 5
+
     def process(self, state, x, params, ctx: BuildCtx):
         y = x
         new_state = {}

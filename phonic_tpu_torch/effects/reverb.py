@@ -85,6 +85,12 @@ class ReverbEffect(Effect):
         (reference: ReverbEffectMessage::Reset, reverb.rs:470-494)."""
         self._resets.append(int(time))
 
+    def handle_message(self, message, time: int = 0):
+        if message in ("reset", ("reset",)):
+            self.reset(time)
+        else:
+            raise ValueError(f"unknown reverb message {message!r}")
+
     def lower_block_inputs(self, block_start: int, block_len: int):
         hit = any(block_start <= t < block_start + block_len
                   for t in self._resets)
@@ -120,6 +126,27 @@ class ReverbEffect(Effect):
             "vib_phase": torch.as_tensor(vib_phase, device=dev).to(dt),
             "fb": zeros(8, 2),
         }
+
+    @staticmethod
+    def _tail_for_room(room: float, sample_rate: int) -> int:
+        """reference: reverb.rs:449-467."""
+        size = room * room * 75.0 + 25.0
+        max_delay = int(79.0 * size)
+        fb = 1.0 - (1.0 - (0.82 - ((1.0 - room) * 0.7 + size * 0.002))) ** 4
+        if fb >= 1.0:
+            return int(20 * sample_rate)
+        if fb <= 0.0:
+            return max_delay
+        return max_delay + int(max_delay * math.log10(0.001) / math.log10(fb))
+
+    def tail_frames(self, ctx: BuildCtx) -> int:
+        return self._tail_for_room(self.room_size, ctx.sample_rate)
+
+    def max_tail_frames(self, ctx: BuildCtx) -> int:
+        # ROOM_SIZE is automatable up to the capacity cap and the decay is
+        # monotonic in room, so that maximum is the worst case
+        return self._tail_for_room(min(ROOM_SIZE.max, self.max_room_size),
+                                   ctx.sample_rate)
 
     def _subblocks(self, ctx: BuildCtx):
         # smallest reachable size (room >= min_room_size; room 0 -> 25):

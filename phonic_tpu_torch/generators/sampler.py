@@ -129,9 +129,7 @@ class Sampler(Generator):
 
     @classmethod
     def from_file(cls, path, **kwargs) -> "Sampler":
-        raise NotImplementedError(
-            "file decoding is not ported yet; build the buffer with "
-            "AudioFileBuffer.from_array")
+        return cls(AudioFileBuffer.from_file(path), **kwargs)
 
     def source_batch_key(self, ctx):
         """Static-config signature of a generator pool
@@ -308,6 +306,17 @@ class Sampler(Generator):
                         seg.spd_tl.set_at(t, ev.value)
         self._plan_cache = ((len(self.events), sample_rate), voices)
         return voices
+
+    def duration_frames(self, ctx: BuildCtx) -> Optional[int]:
+        voices = self._allocate(ctx.sample_rate)
+        total = 0
+        for segs in voices:
+            for seg in segs:
+                end = self._voice_end(seg, ctx.sample_rate)
+                if end is math.inf:
+                    return None
+                total = max(total, int(end))
+        return total
 
     def prepare(self, ctx: BuildCtx) -> None:
         # the engine hands us the output rate at program build so lowering

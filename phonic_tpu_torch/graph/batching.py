@@ -1,11 +1,13 @@
 """File-source lane banks and generator pools (port of ``FileBatch`` and
 ``LeafBatch`` from ``phonic_tpu/graph/batching.py``).
 
-Homogeneous FileSources (same loop kind, endlessness, channel layout, fade
-flags and length bucket) render as one bank of lanes: stacked buffers, a
-leading lane dimension on every per-source tensor, and one batched read
-(ops/rampread.py).  Per-source positions, fades, loop bounds and stop/kill
-frames are tensors, so any of them may change between blocks.
+Homogeneous FileSources (same loop kind, endlessness, resampling quality,
+channel layout, fade flags and length bucket) render as one bank of lanes:
+stacked buffers, a leading lane dimension on every per-source tensor, and
+one batched read: the ramp-read kernel (ops/rampread.py) at the default
+quality, the polyphase sinc (ops/resample.sinc_read) at "high".
+Per-source positions, fades, loop bounds and stop/kill frames are
+tensors, so any of them may change between blocks.
 
 The JAX package vmaps a one-lane function over the bank; here the lane
 dimension is written out: positions and parameters are ``[S, n]``.
@@ -82,6 +84,15 @@ class FileBatch:
         self.ratio = lane(lambda s: s.buffer.sample_rate / sr, f32)
         self.fade_in_log1m = lane(lambda s: fade(s.options.fade_in_secs), f32)
         self.fade_out_log1m = lane(lambda s: fade(s.options.fade_out_secs), f32)
+        self.sinc = None
+        if s0.options.resampling_quality == "high":
+            # one table per bank, its cutoff set by the fastest lane's
+            # initial step (a float32 product, as the JAX package's bank)
+            max_r = max(float(np.float32(s.buffer.sample_rate / sr)
+                              * np.float32(s.options.speed)) for s in sources)
+            self.sinc = torch.tensor(
+                rs.sinc_table(cutoff=min(1.0, 1.0 / max(max_r, 1.0))),
+                device=dev)
 
     def init_state(self):
         """Running state: the compensated position ``base + frac + frac_lo``
@@ -156,9 +167,9 @@ class FileBatch:
         lo0 = torch.where(seek, 0.0, state["frac_lo"])
 
         steps = torch.where(active, speed * self.ratio, 0.0)
-        # the JAX package's windowed reads need steps <= smax (2**bucket of
+        # the JAX package's windowed reads clamp steps to smax (2**bucket of
         # the max speed ever scheduled, so this never binds in contract);
-        # clamping here keeps the positions identical to it
+        # clamping here too keeps the positions identical to it
         steps = torch.clamp(steps, max=smax)
         # positions as affine base + residual cumsum: exact for constant
         # speed, and the residual is tiny during glides
@@ -218,7 +229,10 @@ class FileBatch:
                           for s in self.sources)
         pos, mask, new_state = self.lane_pos(state, frame0, speed, kill_at,
                                              seek_flag, seek_pos, smax)
-        audio = rampread.ramp_read(self.buffers, self.smap, pos)
+        if self.sinc is not None:
+            audio = rs.sinc_read(self.buffers, pos, self.sinc)
+        else:
+            audio = rampread.ramp_read(self.buffers, self.smap, pos)
         return new_state, self.lane_post(audio, mask, frame0, volume,
                                          panning, stop_at)
 

@@ -23,6 +23,7 @@ nothing is compiled, so the JAX package's recompile guard
 
 from __future__ import annotations
 
+import bisect
 from typing import Optional, Union
 
 import numpy as np
@@ -271,6 +272,43 @@ class RenderProgram:
         raw = self.nodes[path].param(pid).clamp(value)
         self.timelines[(path, pid)].set_at(at_frame, float(raw))
 
+    def set_parameter_normalized(self, node, pid: str, normalized: float,
+                                 at_frame: int = 0):
+        """Parameter update by normalized 0..1 position through the
+        descriptor's scaling (reference: ParameterValueUpdate::Normalized,
+        src/parameter.rs:106-113)."""
+        path = self._resolve(node)
+        raw = self.nodes[path].param(pid).denormalize(float(normalized))
+        self.timelines[(path, pid)].set_at(at_frame, float(raw))
+
+    def remove_pending_events(self, node=None, after_frame: int = 0):
+        """Drop all scheduled parameter events at/after ``after_frame``: for
+        one node, or for the whole graph plus pending stop/kill schedules
+        (reference: MixerMessage::RemoveAllPendingEvents,
+        src/source/mixed.rs:47-194)."""
+        only = None if node is None else self._resolve(node)
+        for (path, _), tl in self.timelines.items():
+            if only is not None and path != only:
+                continue
+            cut = bisect.bisect_left(tl.times, int(after_frame))
+            del tl.times[cut:], tl.values[cut:], tl.ramps[cut:]
+        if node is None:
+            for p in self.source_paths:
+                if self.stop_frames[p] >= after_frame:
+                    self.stop_frames[p] = NEVER
+                if self.kill_frames[p] >= after_frame:
+                    self.kill_frames[p] = NEVER
+
+    def set_parameter_glide(self, node, pid: str, value, rate: float,
+                            at_frame: int = 0):
+        """Like set_parameter but ramping at ``rate`` semitones/second
+        (reference: FilePlaybackHandle::set_speed's glide argument,
+        src/player/handles/file.rs:150-176)."""
+        path = self._resolve(node)
+        raw = self.nodes[path].param(pid).clamp(value)
+        self.timelines[(path, pid)].set_glide_at(
+            at_frame, float(raw), float(rate), self.ctx.sample_rate)
+
     def stop_source(self, source, at_frame: int = 0, kill: bool = False):
         """Schedule a stop (with the source's fade-out) or kill (hard cut)."""
         path = self._resolve(source)
@@ -278,6 +316,36 @@ class RenderProgram:
             raise NotFoundError(f"{path} is not a source")
         frames = self.kill_frames if kill else self.stop_frames
         frames[path] = min(frames[path], int(at_frame))
+
+    def natural_duration_frames(self) -> Optional[int]:
+        """Longest finite source duration + effect tails, or None if endless."""
+        total = 0
+        for path in self.source_paths:
+            d = self.nodes[path].duration_frames(self.ctx)
+            stop = self.stop_frames[path]
+            kill = self.kill_frames[path]
+            if d is None and stop == NEVER and kill == NEVER:
+                return None
+            limit = min(x for x in (d, stop if stop != NEVER else None,
+                                    kill if kill != NEVER else None)
+                        if x is not None)
+            if stop != NEVER and limit == stop:
+                fade = getattr(self.nodes[path], "options", None)
+                limit += int((fade.fade_out_secs if fade else 0.05)
+                             * self.ctx.sample_rate) + 1
+            total = max(total, limit)
+        return total + self._total_tail()
+
+    def _total_tail(self) -> int:
+        """Effect tails summed down each chain, the longest child mixer's
+        tail under its parent's."""
+        def mixer_tail(m: _FrozenMixer) -> int:
+            t = max((mixer_tail(c) for c in m.children), default=0)
+            for e in m.effects:
+                t += e.tail_frames(self.ctx)
+            return t
+
+        return mixer_tail(self._frozen)
 
     # ------------------------------------------------------------------
     # state + inputs
@@ -456,10 +524,21 @@ class RenderProgram:
     # rendering
     # ------------------------------------------------------------------
 
-    def render(self, duration_frames: int, state=None) -> np.ndarray:
+    def render(self, duration_frames: Optional[int] = None,
+               state=None) -> np.ndarray:
         """Offline render of the first ``duration_frames`` frames to a planar
         float32 array [channels, frames]: a host loop over blocks, one
-        device-to-host copy at the end."""
+        device-to-host copy at the end.  Without a length the render runs
+        to :meth:`natural_duration_frames`; an endless graph then raises.
+
+        The JAX package's ``mode=`` argument chooses between a ``lax.scan``
+        over blocks and a host loop; nothing is compiled here, so the host
+        loop is the only mode and the argument has no counterpart."""
+        if duration_frames is None:
+            duration_frames = self.natural_duration_frames()
+            if duration_frames is None:
+                raise ValueError(
+                    "graph has endless sources; pass an explicit duration")
         n = self.ctx.block_frames
         num_blocks = max((int(duration_frames) + n - 1) // n, 1)
         state = state if state is not None else self.init_state()

@@ -66,6 +66,11 @@ class Node:
         rate."""
         return None
 
+    def handle_message(self, message, time: int = 0) -> None:
+        """Host-side message hook (reference: Effect::process_message, e.g.
+        the reverb's reset).  Default: ignore."""
+        return None
+
     def lower_block_inputs(self, block_start: int, block_len: int):
         """Host lowering hook: a dict of extra per-block numpy values that
         ``process`` receives in its params dict (keys start with '_')."""
@@ -73,7 +78,9 @@ class Node:
 
 
 class Effect(Node):
-    """Audio in -> audio out (reference: src/effect.rs:86-215)."""
+    """Audio in -> audio out (reference: src/effect.rs:86-215).
+    ``tail_frames`` is the ring-out length an offline render appends
+    (reference: src/effect.rs:190-215)."""
 
     def batch_key(self, ctx: BuildCtx):
         """Hashable key for cross-mixer effect batching, or None if this
@@ -89,6 +96,18 @@ class Effect(Node):
     def process(self, state, x, params, ctx: BuildCtx):
         raise NotImplementedError
 
+    def tail_frames(self, ctx: BuildCtx) -> int:
+        return 0
+
+    def max_tail_frames(self, ctx: BuildCtx) -> int:
+        """Worst-case tail over the full automatable parameter ranges."""
+        return self.tail_frames(ctx)
+
 
 class Source(Node):
-    """Produces audio (reference: src/source.rs:80-110)."""
+    """Produces audio (reference: src/source.rs:80-110).
+    ``duration_frames`` is the number of frames the source produces at the
+    output rate, or None if it is endless (looped, or a generator)."""
+
+    def duration_frames(self, ctx: BuildCtx) -> Optional[int]:
+        return None

@@ -1,3 +1,14 @@
-from .decoder import AudioFileBuffer
+from .decoder import (
+    AudioFileBuffer,
+    AudioFileInfo,
+    decode_file,
+    file_info,
+    register_decoder,
+)
+from .wav import read_wav, read_wav_info, write_wav, LoopInfo, WavInfo
 
-__all__ = ["AudioFileBuffer"]
+__all__ = [
+    "AudioFileBuffer", "AudioFileInfo", "decode_file", "file_info",
+    "register_decoder", "read_wav", "read_wav_info", "write_wav",
+    "LoopInfo", "WavInfo",
+]

@@ -1,5 +1,6 @@
-"""4-point Hermite resampling read and loop folds (port of
-``hermite_read`` and ``loop_fold`` from ``phonic_tpu/ops/resample.py``).
+"""Resampling reads and loop folds (port of ``hermite_read``,
+``sinc_table``, ``sinc_read`` and ``loop_fold`` from
+``phonic_tpu/ops/resample.py``).
 
 Behavioural spec: reference src/utils/resampler/cubic.rs — 4-point
 3rd-order Hermite x-form (Niemitalo, deip.pdf p. 43, :121-142).  Every
@@ -7,12 +8,19 @@ output sample's source position is computed analytically, so a speed-
 glided, looped read is one gather + polynomial per block.  Out-of-range
 taps read zeros (the reference zero-pads at EOF, src/source/resampled.rs:
 104-152, and appends a guard frame, src/source/file/buffer.rs:103-105).
+
+The high-quality read is a Kaiser-windowed polyphase sinc: a gather of
+32-tap windows and a dot product with interpolated table rows, plain
+tensor operations on every device (the JAX package, too, computes it
+outside any Pallas kernel).
 """
 
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
+import numpy as np
 import torch
 
 
@@ -62,6 +70,73 @@ def hermite_read(buf: torch.Tensor, positions: torch.Tensor,
     c2 = ym1 - y0 * 2.5 + y1 * 2.0 - y2 * 0.5
     c3 = (y2 - ym1) * 0.5 + (y0 - y1) * 1.5
     return ((c3 * frac + c2) * frac + c1) * frac + c0
+
+
+@lru_cache(maxsize=32)
+def sinc_table(taps: int = 32, phases: int = 512, cutoff: float = 1.0,
+               beta: float = 9.0) -> np.ndarray:
+    """Kaiser-windowed sinc prototype, tabulated per fractional phase.
+
+    Returns float32 numpy [phases + 1, taps]; row p is the FIR for
+    fractional position p/phases.  ``cutoff`` (0..1, fraction of the
+    *output* Nyquist) is ~1/ratio when downsampling, for anti-aliasing.
+    The cached array is shared: callers copy it to their device and do not
+    write to it."""
+    half = taps // 2
+    # tap k of phase p reads input[floor(pos) - half + 1 + k]; its distance
+    # to the read position is (k - half + 1 - p/phases)
+    p = np.arange(phases + 1)[:, None] / phases
+    k = np.arange(taps)[None, :]
+    x = k - half + 1.0 - p  # tap distance to the read position, in [-half, half]
+    window = np.kaiser(2 * half * phases + 1, beta)
+    wi = np.clip(np.round(x * phases).astype(np.int64) + half * phases, 0,
+                 len(window) - 1)
+    h = cutoff * np.sinc(cutoff * x) * window[wi]
+    h /= h.sum(axis=1, keepdims=True)  # unity DC gain per phase
+    table = h.astype(np.float32)
+    table.flags.writeable = False
+    return table
+
+
+def sinc_read(buf: torch.Tensor, positions: torch.Tensor, table: torch.Tensor,
+              fill: float = 0.0) -> torch.Tensor:
+    """Bandlimited read of fractional ``positions`` with a polyphase table
+    from :func:`sinc_table` (on ``buf``'s device); linear interpolation
+    between adjacent phase rows gives a continuously variable fractional
+    delay.
+
+    buf: [..., C, frames]; positions: float32 [..., n] (buf's leading
+    dims).  Taps outside [0, frames) read ``fill``.  Returns [..., C, n].
+    The [..., C, n, taps] window tensor is the one large intermediate: it
+    is masked and weighted in place."""
+    frames = buf.shape[-1]
+    taps = table.shape[1]
+    phases = table.shape[0] - 1
+    half = taps // 2
+
+    pos = positions.to(torch.float32)
+    k = torch.floor(pos)
+    frac = pos - k
+    ki = k.to(torch.int64)
+
+    ph = frac * phases
+    p0 = torch.floor(ph)
+    pf = (ph - p0).to(buf.dtype)[..., None]
+    p0 = p0.to(torch.int64).clamp(0, phases)
+    h = table[p0] * (1.0 - pf) + table[(p0 + 1).clamp(max=phases)] * pf
+
+    # gather [..., C, n, taps] input windows
+    idx = ki[..., None] + torch.arange(-half + 1, taps - half + 1,
+                                       device=buf.device)
+    valid = (idx >= 0) & (idx < frames)
+    lead, n = idx.shape[:-2], idx.shape[-2]
+    chans = buf.shape[-2]
+    flat = idx.clamp(0, frames - 1).reshape(lead + (1, n * taps))
+    v = torch.gather(buf, -1, flat.expand(lead + (chans, n * taps)))
+    v = v.view(lead + (chans, n, taps))
+    v.masked_fill_(~valid[..., None, :, :], fill)
+    v.mul_(h[..., None, :, :])
+    return v.sum(dim=-1)
 
 
 def loop_fold(positions: torch.Tensor, loop_start, loop_end,

@@ -22,7 +22,7 @@ from typing import Optional
 import numpy as np
 
 from ..errors import ParameterError
-from ..graph.nodes import Source
+from ..graph.nodes import BuildCtx, Source
 from ..io.decoder import AudioFileBuffer
 from ..ops import resample as rs
 from ..params import DecibelScaling, FloatParameter, format_gain, format_pan
@@ -57,8 +57,7 @@ class FilePlaybackOptions:
     start_time: int = 0  # absolute output frame
     fade_in_secs: float = 0.0
     fade_out_secs: float = 0.05  # de-click stop fade (reference default 50 ms)
-    # "default" (Hermite); "high" (sinc) comes with the play_file slice
-    resampling_quality: str = "default"
+    resampling_quality: str = "default"  # "default" (Hermite) | "high" (sinc)
 
     def validate(self):
         """reference: FilePlaybackOptions::validate,
@@ -69,10 +68,7 @@ class FilePlaybackOptions:
             raise ParameterError(f"playback options 'panning' value is {self.panning!r}")
         if not (0.0 <= self.speed < float("inf")):
             raise ParameterError(f"playback options 'speed' value is {self.speed!r}")
-        if self.resampling_quality == "high":
-            raise NotImplementedError(
-                "resampling_quality='high' (sinc) is not ported yet")
-        if self.resampling_quality != "default":
+        if self.resampling_quality not in ("default", "high"):
             raise ValueError(
                 f"unknown resampling quality {self.resampling_quality!r}")
         return self
@@ -129,3 +125,22 @@ class FileSource(Source):
             PANNING.id: self.options.panning,
             SPEED.id: self.options.speed,
         }
+
+    def _source_span(self) -> Optional[int]:
+        """Total span in linear source frames, or None if endless."""
+        frames = self.buffer.frames
+        rpt = self.options.repeat
+        if rpt is None:
+            return None
+        if self.loop_range is not None:
+            start, end = self.loop_range
+            return frames + rpt * (end - start)
+        return frames * (rpt + 1)
+
+    def duration_frames(self, ctx: BuildCtx) -> Optional[int]:
+        span = self._source_span()
+        if span is None:
+            return None
+        ratio = self.buffer.sample_rate / ctx.sample_rate
+        return self.options.start_time + int(
+            np.ceil(span / (ratio * max(self.options.speed, 1e-6))))

@@ -3,7 +3,9 @@ JAX package, over the options the headline graph does not use: forward and
 pingpong loops, repeats, fade-in, stop with fade-out, kill, seek, a speed
 change, stereo buffers at another sample rate, and a source in a group of
 one.  Both packages render the same graph of sources only (no effects) over
-four 2048-frame blocks; the port must match to -90 dB of peak.
+four 2048-frame blocks; the port must match to -90 dB of peak.  The graph
+renders once more with every source at ``resampling_quality="high"`` (the
+polyphase sinc read), at speeds from 0.6 to 1.7.
 """
 
 import numpy as np
@@ -16,7 +18,7 @@ BLOCK = 2048
 DB90 = 10.0 ** (-90.0 / 20.0)
 
 
-def _graph(pkg):
+def _graph(pkg, quality="default"):
     """Four batched groups of two plus one lone source; ``pkg`` is either
     package's top-level module (same API)."""
     rng = np.random.default_rng(3)
@@ -28,7 +30,9 @@ def _graph(pkg):
         return pkg.AudioFileBuffer.from_array(x, sr, loop_range=loop,
                                               loop_mode=mode)
 
-    opts = pkg.FilePlaybackOptions
+    def opts(**kw):
+        return pkg.FilePlaybackOptions(resampling_quality=quality, **kw)
+
     main = pkg.Mixer("main")
     specs = {
         "loop": lambda: (buf(3000, loop=(500, 2200)), opts(repeat=None, speed=1.7)),
@@ -75,6 +79,15 @@ def test_sources_match_jax(jax_audio, batch_sources):
     assert np.abs(got - jax_audio).max() <= DB90 * peak
 
 
-def test_high_quality_resampling_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        pt.FilePlaybackOptions(resampling_quality="high").validate()
+def test_high_quality_resampling_matches_jax():
+    jprog = jp.RenderProgram(_graph(jp, "high"), jp.EngineConfig(block_frames=BLOCK))
+    prog = pt.RenderProgram(_graph(pt, "high"), pt.EngineConfig(
+        block_frames=BLOCK, device="cpu"))
+    assert all(b.sinc is not None for b in prog.file_batches)
+    _schedule(jprog)
+    _schedule(prog)
+    want = jprog.render(4 * BLOCK)
+    got = prog.render(4 * BLOCK)
+    peak = np.abs(want).max()
+    assert peak > 0.1
+    assert np.abs(got - want).max() <= DB90 * peak
