@@ -1,7 +1,7 @@
 """GPU smoke test of the PyTorch port: build the CUDA kernels, check each
 against its plain PyTorch version on the card, then render the headline
-mixer graph, the mastering chain, the 64-voice sampler and the play_file
-path at full width on the card and check them.
+mixer graph, the mastering chain, the 64-voice sampler, the play_file path
+and the granular sampler at full width on the card and check them.
 
     python3 chip_smoke.py
 
@@ -19,10 +19,13 @@ phase fails.  Phases:
    paths' shapes and at ragged ones, with its time beside the plain
    version's (CUDA events around the wrapper).  The ramp read also runs
    unaligned rows with a ragged end (B=3, ch=2, N=4097), bench.py's 64
-   sampler voices over one shared 48000-frame tone (B=64, N=131072), and
-   lanes whose source index is out of range with NaN positions (both read
-   silence); the recurrences run at one and two segments and one off, odd
-   lengths (rows that start unaligned), one row and forty.  The follower and
+   sampler voices over one shared 48000-frame tone (B=64, N=131072), the
+   granular path's grains (B=1000 lanes over one 96002-frame row: a
+   96000-frame tone extended by one frame each side, folded ramps forward
+   and backward with their wrap jumps, N=131072), and lanes whose source
+   index is out of range with NaN positions (both read silence); the
+   recurrences run at one and two segments and one off, odd lengths (rows
+   that start unaligned), one row and forty.  The follower and
    the gate must agree with their plain versions exactly; at 131072
    samples their plain versions (a Python loop over time) run on a CPU
    copy of the card's inputs.  The gate also runs edge cases: lengths at
@@ -54,7 +57,12 @@ phase fails.  Phases:
    the WAV read back must hold exactly the natural length (computed here
    from the source's span, rate and speed), be finite and not silent, and
    its first two blocks must match the same program on the CPU to -90 dB;
-   the sinc read's time at that shape is logged;
+   the sinc read's time at that shape is logged; (c) the granular sampler
+   (bench.py's config 4: 10 voices, each keeping a pool of 100 one-second
+   grains full at 100 Hz density, over a 96000-frame tone, 131072-frame
+   blocks at 48 kHz stereo), checked the same way; every grain of a block
+   reads in exactly one ramp_read, and float32 matrix products must not
+   run in TF32 (the grain mix is one);
 7. under ``torch.profiler``, after every timed render (a profiler session
    slows the launches that follow it in the process): one more block of
    each path, which gives the device operations, the host-to-device
@@ -89,6 +97,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from phonic_tpu_torch import kernels
 from phonic_tpu_torch.effects.delay import DelayEffect
+from phonic_tpu_torch.generators.granular import source_table
+from phonic_tpu_torch.granular1k import granular_program
 from phonic_tpu_torch.headline import mixer_graph_program
 from phonic_tpu_torch.io import wav as wav_io
 from phonic_tpu_torch.io.decoder import AudioFileBuffer
@@ -253,6 +263,19 @@ def ramp_positions(rng, lanes, n, frames):
     return p.astype(np.float32)
 
 
+def grain_positions(rng, lanes, n, frames, dev):
+    """Grain read positions as the granular path gives them (``fidx + 1``):
+    per lane a ramp at 0.5..2 source frames per sample, forward or
+    backward, folded on the file circle, so it jumps at each wrap; in
+    [1, frames + 1).  Made on the card: [1000, 131072] is 0.5 GB."""
+    speed = rng.uniform(0.5, 2.0, lanes) * rng.choice([-1.0, 1.0], lanes)
+    start = rng.uniform(0, frames, lanes)
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    ramp = (torch.as_tensor(start, device=dev)[:, None]
+            + torch.as_tensor(speed, device=dev)[:, None] * t)
+    return (torch.remainder(ramp, frames) + 1.0).to(torch.float32)
+
+
 def ramp_expected(src, smap, pos):
     """The plain version with the kernel's guards: a lane whose source index
     is outside [0, S), and a NaN position, read silence."""
@@ -266,8 +289,10 @@ def ramp_expected(src, smap, pos):
 # guard), outputs, path, kind ("ramps": lane b reads source b, random
 # tables; "tone": every lane reads one 48000-frame tone, as the sampler
 # path's 64 voices do; "loop": one lane reads one 48000-frame tone looped
-# at speed 1.09, as config 1 does; "bad": lanes 1 and B-1 read sources out
-# of range, 5 % of the positions are NaN)
+# at speed 1.09, as config 1 does; "grains": every lane reads one 96000-frame
+# tone extended by one frame each side, as the granular path's 1000 grain
+# slots do; "bad": lanes 1 and B-1 read sources out of range, 5 % of the
+# positions are NaN)
 RAMP_CASES = (
     (1, 1, 1, 48001, PLAY_BLOCK, "play_file", "loop"),
     (16, 1, 16, 26656, BLOCK, "headline", "ramps"),
@@ -277,6 +302,7 @@ RAMP_CASES = (
     (16, 2, 16, 26656, 1000, None, "ramps"),
     (3, 2, 3, 26656, 4097, None, "ramps"),
     (64, 1, 1, 48001, BLOCK, "sampler", "tone"),
+    (1000, 1, 1, 96002, BLOCK, "granular", "grains"),
     (4, 2, 3, 5000, 4096, None, "bad"),
     (4, 2, 3, 5000, 4097, None, "bad"))
 
@@ -307,15 +333,20 @@ def check_kernels(dev):
         if kind in ("tone", "loop"):
             tone = np.sin(2 * np.pi * 440 / SR * np.arange(frames - 1))
             src = np.append(tone, 0.0).reshape(1, 1, frames)
+        elif kind == "grains":
+            tone = np.sin(2 * np.pi * 220 / SR * np.arange(frames - 2))
+            src = source_table(tone)
         else:
             src = rng.normal(size=(sources, ch, frames))
         src = torch.as_tensor(src.astype(np.float32), device=dev)
         smap = torch.arange(lanes, dtype=torch.int32, device=dev) % sources
         if kind == "loop":
             pos = np.mod(np.arange(n) * 1.09, frames - 1)[None]
+        elif kind == "grains":
+            pos = grain_positions(rng, lanes, n, frames - 2, dev)
         else:
             pos = ramp_positions(rng, lanes, n, frames)
-        pos = torch.as_tensor(pos.astype(np.float32), device=dev)
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
         plain = rampread.ramp_read_plain
         if kind == "bad":
             smap[1], smap[-1] = sources + 2, -1
@@ -596,12 +627,14 @@ def read_counters():
     return launches
 
 
-def render_path(name, make_program, dev, kernels_used, blocks=4):
+def render_path(name, make_program, dev, kernels_used, blocks=4,
+                once_per_block=()):
     """Render ``blocks`` blocks of a program on the card after one warm-up
     block, with the launch counters set to 0 just before; check that each
-    kernel of the path launched at least once per block, the audio, and
-    blocks 0-1 against the same program on the CPU.  Returns the launches
-    of this run and the program."""
+    kernel of the path launched at least once per block (those of
+    ``once_per_block`` exactly once), the audio, and blocks 0-1 against the
+    same program on the CPU.  Returns the launches of this run and the
+    program."""
     prog = make_program(dev)
     n = prog.ctx.block_frames
     prog.render(n)  # warm-up: allocator and library start-up
@@ -612,6 +645,10 @@ def render_path(name, make_program, dev, kernels_used, blocks=4):
     if idle:
         raise RuntimeError(f"{name}: kernels of the path launched fewer "
                            f"times than the {blocks} blocks: {idle}")
+    extra = [k for k in once_per_block if launches[k] != blocks]
+    if extra:
+        raise RuntimeError(f"{name}: kernels not launched exactly once per "
+                           f"block: {extra}")
     check_audio(name, audio, (2, blocks * n))
     against_cpu(name, audio, make_program("cpu"))
     return launches, prog
@@ -837,6 +874,15 @@ def main():
     phase("6b: play_file, a decoded 180 s file at high quality, on the card")
     with tempfile.TemporaryDirectory() as tmp:
         progs["decoded_file"] = decoded_file(dev, tmp)
+    phase("6c: granular_1k, bench.py's config 4, on the card")
+    # the grain mix is a float32 matrix product: TF32 would put the card
+    # some 60 dB from the CPU
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError("float32 matrix products are set to run in TF32")
+    paths["granular"], progs["granular"] = render_path(
+        "granular", lambda d: granular_program(block_frames=BLOCK, device=d),
+        dev, ("ramp_read",), once_per_block=("ramp_read",))
     # a profiler session leaves launches slower for the rest of the process,
     # so every profiled number comes after the timed renders
     phase("7: under the profiler")

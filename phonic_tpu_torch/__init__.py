@@ -19,13 +19,19 @@ from .errors import (
     UnsupportedFormatError,
 )
 from .generators.base import Generator, GeneratorPlaybackOptions
+from .generators.granular import GranularConfig
 from .generators.sampler import AhdsrConfig, Sampler
+from .granular1k import granular_graph, granular_program
 from .graph.engine import RenderProgram
 from .graph.mixer import Mixer
 from .io.decoder import (
     AudioFileBuffer, AudioFileInfo, decode_file, file_info, register_decoder,
 )
 from .mastering import mastering_chain, mastering_program
+from .modulation import (
+    EnvelopeSource, KeytrackingSource, LfoSource, ModulationConfig,
+    VelocitySource,
+)
 from .outputs.wav_out import WavOutput
 from .play_file import play_file_graph, play_file_program, render_file
 from .sampler64 import sampler_graph, sampler_program
@@ -40,5 +46,7 @@ __all__ = [
     "GeneratorPlaybackOptions", "AhdsrConfig", "Sampler", "sampler_graph",
     "sampler_program", "AudioFileInfo", "decode_file", "file_info",
     "register_decoder", "UnsupportedFormatError", "WavOutput",
-    "play_file_graph", "play_file_program", "render_file",
+    "play_file_graph", "play_file_program", "render_file", "GranularConfig",
+    "ModulationConfig", "LfoSource", "EnvelopeSource", "VelocitySource",
+    "KeytrackingSource", "granular_graph", "granular_program",
 ]

@@ -40,6 +40,13 @@ def _like(template, value, where: str):
                             for i, (t, v) in enumerate(zip(template, value))))
 
 
+def _stack(trees):
+    """Stack numpy trees (nested dicts of arrays) along a new first axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([np.asarray(t) for t in trees])
+
+
 def _node(np_state, path: str):
     try:
         return np_state["nodes"][path]
@@ -55,7 +62,9 @@ def state_from_jax(np_state, program):
     two or more, sibling effect chains), its state holds stacked lanes
     numbered in the order the port enumerates its own banks, pools and
     chains; where it does not, the node's own entry is used and gets the
-    port's lane dimension of 1."""
+    port's lane dimension of 1.  A granular sampler is never batched: its
+    state, grain pools included, is its node's own, and it takes no
+    ``gen_batches`` entry."""
     template = program.init_state()
     smoothers = {key: _like(t, np_state["smoothers"][key], f"smoothers{key}")
                  for key, t in template["smoothers"].items()}
@@ -73,12 +82,13 @@ def state_from_jax(np_state, program):
 
     pools, gid = [], 0
     for pool, t in zip(program.pools, template["pools"]):
-        if program.config.batch_sources and len(pool.paths) >= 2:
+        if (program.config.batch_sources and len(pool.paths) >= 2
+                and pool.proto.granular is None):
             lanes = np_state["gen_batches"][gid]
             gid += 1
         else:
-            lanes = {k: np.stack([np.asarray(_node(np_state, p)[k])
-                                  for p in pool.paths]) for k in t}
+            lanes = _stack([{k: _node(np_state, p)[k] for k in t}
+                            for p in pool.paths])
         pools.append(_like(t, lanes, f"pools/{pool.paths[0]}"))
 
     chains, gid = [], 0

@@ -1,4 +1,4 @@
-"""Polyphonic sample-playback generator (port of the sampled path of
+"""Polyphonic sample-playback generator (port of
 ``phonic_tpu/generators/sampler.py``).
 
 Behavioural spec: reference src/generator/sampler.rs + sampler/voice.rs —
@@ -26,8 +26,12 @@ Known deviations (as in the JAX package): AHDSR parameter changes re-shape
 the envelope of already sounding notes analytically; more than one steal of
 the same voice within one block keeps only the last note.
 
-Not ported yet: granular playback and the modulation matrix (the granular
-slice), and loading a sampler from a file (file decoding).
+Granular playback (``with_granular_playback``) renders each voice as a
+pool of grains (generators/granular.py) with the modulation matrix
+(modulation/) feeding the 7 granular targets.  A granular sampler is a
+generator pool of its own; ``process_granular`` allocates the grains of
+every voice over 2048-frame chunks, then reads every grain of the block in
+one ``ramp_read`` of the circularly extended mono buffer.
 """
 
 from __future__ import annotations
@@ -42,13 +46,28 @@ import torch
 from ..events import ParamTimeline
 from ..graph.nodes import BuildCtx
 from ..io.decoder import AudioFileBuffer
+from ..modulation.matrix import (
+    TARGETS, ModulationRoutings, apply_matrix, build_source_specs,
+    eval_sources, source_polarity,
+)
 from ..ops import ahdsr as ahdsr_ops
 from ..ops import resample as rs
 from ..ops.convert import panning_factors
+from ..ops.precision import recip32
 from ..ops.smoothing import SegmentEvents, step_targets
-from ..params import (DecibelScaling, ExponentialScaling, FloatParameter,
-                      IntegerParameter, format_gain, format_pan)
+from ..params import (DecibelScaling, EnumParameter, ExponentialScaling,
+                      FloatParameter, IntegerParameter, format_gain, format_pan)
 from .base import Generator, GeneratorPlaybackOptions
+from .granular import (
+    DIRECTIONS, NEVER, OVERLAP_MODES, POOL_SIZE, WINDOW_MODES, GranularConfig,
+    grain_mix, grain_state_init, granular_voice_alloc, source_table,
+    window_table,
+)
+
+# granular renders in chunks of this size when the block is a larger
+# multiple of it: a slot is reusable only once its grain expired before the
+# chunk being allocated, so the chunk size is part of the output
+_GRANULAR_CHUNK = 2048
 
 TRANSPOSE = IntegerParameter("STRN", "Transpose", -48, 48, 0, unit="st")
 FINETUNE = IntegerParameter("SFTN", "Finetune", -100, 100, 0, unit="ct")
@@ -67,9 +86,32 @@ ENV_SUSTAIN = FloatParameter("ASTN", "Sustain", 0.0, 1.0, 1.0, smoothing=None)
 ENV_RELEASE = FloatParameter("AREL", "Release", 0.0, 10.0, 0.05, unit="s",
                              scaling=ExponentialScaling(3.0), smoothing=None)
 
-_GRANULAR_SLICE = ("granular playback and modulation are not ported yet: "
-                   "they come with the granular slice (bench.py "
-                   "config_granular_1k)")
+# granular parameters (sampler.rs:219-296)
+GRAIN_OVERLAP = EnumParameter("GOVM", "Overlap Mode", OVERLAP_MODES, "Cloud")
+GRAIN_WINDOW = EnumParameter("GWND", "Window", WINDOW_MODES, "Hann")
+GRAIN_SIZE = FloatParameter("GSIZ", "Grain Size", 1.0, 1000.0, 100.0, unit="ms",
+                            scaling=ExponentialScaling(2.0), smoothing=None)
+GRAIN_DENSITY = FloatParameter("GDEN", "Density", 1.0, 100.0, 10.0, unit="Hz",
+                               scaling=ExponentialScaling(2.0), smoothing=None)
+GRAIN_VARIATION = FloatParameter("GVAR", "Variation", 0.0, 1.0, 0.0, smoothing=None)
+GRAIN_SPRAY = FloatParameter("GSPY", "Spray", 0.0, 1.0, 0.0, smoothing=None)
+GRAIN_PAN_SPREAD = FloatParameter("GPAN", "Pan Spread", 0.0, 1.0, 0.0, smoothing=None)
+GRAIN_DIRECTION = EnumParameter("GDIR", "Direction", DIRECTIONS, "Forward")
+GRAIN_POSITION = FloatParameter("GPOS", "Position", 0.0, 1.0, 0.5, smoothing=None)
+GRAIN_STEP = FloatParameter("GSTP", "Step", -4.0, 4.0, 0.0, unit="x", smoothing=None)
+LFO1_RATE = FloatParameter("ML1R", "LFO 1 Rate", 0.01, 20.0, 1.0, unit="Hz", smoothing=None)
+LFO1_WAVE = EnumParameter("ML1W", "LFO 1 Waveform",
+                          ("Sine", "Triangle", "Ramp Up", "Ramp Down", "Square",
+                           "Random", "Smooth Random"), "Sine")
+LFO2_RATE = FloatParameter("ML2R", "LFO 2 Rate", 0.01, 20.0, 2.0, unit="Hz", smoothing=None)
+LFO2_WAVE = EnumParameter("ML2W", "LFO 2 Waveform",
+                          ("Sine", "Triangle", "Ramp Up", "Ramp Down", "Square",
+                           "Random", "Smooth Random"), "Sine")
+
+GRANULAR_PARAMS = (GRAIN_OVERLAP, GRAIN_WINDOW, GRAIN_SIZE, GRAIN_DENSITY,
+                   GRAIN_VARIATION, GRAIN_SPRAY, GRAIN_PAN_SPREAD,
+                   GRAIN_DIRECTION, GRAIN_POSITION, GRAIN_STEP,
+                   LFO1_RATE, LFO1_WAVE, LFO2_RATE, LFO2_WAVE)
 
 
 @dataclasses.dataclass
@@ -119,9 +161,15 @@ class Sampler(Generator):
         self.envelope = envelope
         self.transpose = int(transpose)
         self.finetune = int(finetune)
+        self.granular: Optional[GranularConfig] = None
+        self.modulation = ModulationRoutings()
+        self.mod_config = self.modulation.config
+        self.seed = 0x6A17
         self._loop_msgs: list = []  # (time, Optional[(start, end)])
         self._plan_cache = None
+        self._mono_cache = None
         self._timelines = {}  # set by the RenderProgram that owns the node
+        self.PARAMS = Sampler.PARAMS  # extended by with_granular_playback
 
     @property
     def WEIGHT(self):  # reference: weight = active voices (sampler.rs:970)
@@ -136,7 +184,10 @@ class Sampler(Generator):
         (graph/batching.LeafBatch): samplers whose keys match render as one
         pool.  Buffer LENGTH rides in per sampler (``_buf_frames``), so only
         its coarse bucket is in the key; it bounds the zero-padding of a
-        pool's buffer table."""
+        pool's buffer table.  A granular sampler renders alone (None), as
+        in the JAX package."""
+        if self.granular is not None:
+            return None
         return (
             self.options.voices,
             self.envelope is not None,
@@ -154,18 +205,42 @@ class Sampler(Generator):
         self.envelope = AhdsrConfig(attack, hold, decay, sustain, release)
         return self
 
-    def with_granular_playback(self, config=None) -> "Sampler":
-        raise NotImplementedError(_GRANULAR_SLICE)
+    def with_granular_playback(self, config: Optional[GranularConfig] = None) -> "Sampler":
+        """Enable granular mode (reference: sampler.rs:598-637): the buffer is
+        monoized + resampled to the output rate for grain reads, granular +
+        modulation parameters activate, and each voice gets a grain pool."""
+        self.granular = config or GranularConfig()
+        self.PARAMS = Sampler.PARAMS + GRANULAR_PARAMS
+        return self
 
     def with_modulation(self, config) -> "Sampler":
-        raise NotImplementedError(_GRANULAR_SLICE)
+        """Install a custom ModulationConfig (modulation/config.py): extra
+        LFO slots and AHDSR Envelope sources become routable to the 7
+        granular targets, with their rate/waveform/AHDSR parameters exposed
+        as engine-smoothed FourCC parameters (reference: the generalized
+        ModulationConfig of src/modulation.rs:135-155; the stock sampler
+        config is src/generator/sampler.rs:362-427).  Requires granular
+        playback (the matrix only feeds granular targets, like the
+        reference sampler)."""
+        if self.granular is None:
+            raise ValueError("call with_granular_playback() before "
+                             "with_modulation(): the sampler matrix feeds "
+                             "the granular targets")
+        if tuple(config.targets) != TARGETS:
+            raise ValueError(f"sampler modulation targets must be {TARGETS}")
+        self.mod_config = config
+        self.modulation = ModulationRoutings(config)
+        have = {p.id for p in self.PARAMS}
+        extra = tuple(p for p in config.source_parameters() if p.id not in have)
+        self.PARAMS = self.PARAMS + extra
+        return self
 
     def set_modulation(self, source: str, target: str, amount: float,
                        bipolar: bool = True):
-        raise NotImplementedError(_GRANULAR_SLICE)
+        self.modulation.set(source, target, amount, bipolar)
 
     def clear_modulation(self, source: str, target: str):
-        raise NotImplementedError(_GRANULAR_SLICE)
+        self.modulation.clear(source, target)
 
     def set_loop_range(self, loop_range, time: int = 0):
         """SamplerMessage::SetLoopRange (reference: sampler.rs:51-55,
@@ -207,13 +282,60 @@ class Sampler(Generator):
         render skips the fold."""
         return self.buffer.loop_range is not None or bool(self._loop_msgs)
 
+    def _mono_buffer(self, sample_rate: int) -> np.ndarray:
+        """Mono buffer at the output rate for grain reads
+        (reference: create_granular_sample_buffer, sampler.rs:908-952)."""
+        if self._mono_cache is not None and self._mono_cache[0] == sample_rate:
+            return self._mono_cache[1]
+        data = np.asarray(self.buffer.data[:, :-1], np.float32)  # drop guard
+        mono = data.mean(axis=0)
+        if self.buffer.sample_rate != sample_rate:
+            ratio = self.buffer.sample_rate / sample_rate
+            n_out = max(int(len(mono) / ratio), 1)
+            pos = np.arange(n_out) * ratio
+            k = np.floor(pos).astype(np.int64)
+            fr = (pos - k).astype(np.float32)
+            def g(i):
+                return np.where((i >= 0) & (i < len(mono)), mono[np.clip(i, 0, len(mono) - 1)], 0.0)
+            ym1, y0, y1, y2 = g(k - 1), g(k), g(k + 1), g(k + 2)
+            c1 = (y1 - ym1) * 0.5
+            c2 = ym1 - y0 * 2.5 + y1 * 2.0 - y2 * 0.5
+            c3 = (y2 - ym1) * 0.5 + (y0 - y1) * 1.5
+            mono = (((c3 * fr + c2) * fr + c1) * fr + y0).astype(np.float32)
+        self._mono_cache = (sample_rate, mono)
+        return mono
+
+    def read_table(self, sample_rate: int):
+        """(rows [ch, F], read lanes) of this sampler in its pool's buffer
+        table (graph/batching.LeafBatch): the buffer with its guard frame and
+        one lane per voice, or, in granular mode, the circularly extended
+        mono buffer and one lane per grain slot."""
+        if self.granular is not None:
+            return (source_table(self._mono_buffer(sample_rate))[0],
+                    self.options.voices * POOL_SIZE)
+        return np.asarray(self.buffer.data), self.options.voices
+
     def param_initials(self):
         env = self.envelope or AhdsrConfig()
-        return {TRANSPOSE.id: self.transpose, FINETUNE.id: self.finetune,
-                VOLUME.id: self.options.volume, PANNING.id: self.options.panning,
-                ENV_ATTACK.id: env.attack, ENV_HOLD.id: env.hold,
-                ENV_DECAY.id: env.decay, ENV_SUSTAIN.id: env.sustain,
-                ENV_RELEASE.id: env.release}
+        d = {TRANSPOSE.id: self.transpose, FINETUNE.id: self.finetune,
+             VOLUME.id: self.options.volume, PANNING.id: self.options.panning,
+             ENV_ATTACK.id: env.attack, ENV_HOLD.id: env.hold,
+             ENV_DECAY.id: env.decay, ENV_SUSTAIN.id: env.sustain,
+             ENV_RELEASE.id: env.release}
+        if self.granular is not None:
+            g = self.granular
+            d.update({
+                GRAIN_OVERLAP.id: GRAIN_OVERLAP.index_of(g.overlap_mode),
+                GRAIN_WINDOW.id: GRAIN_WINDOW.index_of(g.window),
+                GRAIN_SIZE.id: g.size_ms, GRAIN_DENSITY.id: g.density_hz,
+                GRAIN_VARIATION.id: g.variation, GRAIN_SPRAY.id: g.spray,
+                GRAIN_PAN_SPREAD.id: g.pan_spread,
+                GRAIN_DIRECTION.id: GRAIN_DIRECTION.index_of(g.direction),
+                GRAIN_POSITION.id: g.position, GRAIN_STEP.id: g.step,
+                LFO1_RATE.id: 1.0, LFO1_WAVE.id: 0, LFO2_RATE.id: 2.0,
+                LFO2_WAVE.id: 0,
+            })
+        return d
 
     # ------------------------------------------------------------------
     # host-side voice allocation (reference steal policy, sampler.rs:826-860)
@@ -323,10 +445,14 @@ class Sampler(Generator):
         # never falls back to a default
         self._sr = ctx.sample_rate
 
-    def _max_step_bound(self, voices) -> float:
+    def _max_step_bound(self, voices, include_ratio: bool = True) -> float:
         """Upper bound on any voice's per-sample read step: max note pitch
         over every allocated segment (incl. set_note_speed automation knots)
-        x the transpose/finetune parameter bound x the rate ratio."""
+        x the transpose/finetune parameter bound x the rate ratio.
+
+        ``include_ratio=False`` gives the bound in SOURCE frames per output
+        sample for a buffer already resampled to the engine rate (the
+        granular mono buffer)."""
         def tl_max(pid, initial):
             tl = self._timelines.get(pid)
             vals = [float(initial)]
@@ -343,7 +469,8 @@ class Sampler(Generator):
                 spd = max(spd, seg.speed0())
                 if seg.spd_tl is not None and seg.spd_tl.values:
                     spd = max(spd, max(seg.spd_tl.values))
-        return pitch * spd * (self.buffer.sample_rate / self._sr)
+        ratio = (self.buffer.sample_rate / self._sr) if include_ratio else 1.0
+        return pitch * spd * ratio
 
     def lower_block_inputs(self, block_start: int, block_len: int):
         """The block's voice arrays, equal to the JAX package's lowering
@@ -393,13 +520,26 @@ class Sampler(Generator):
                     out[f"_{lane}_{nm}_t"][vi] = t_
                     out[f"_{lane}_{nm}_v"][vi] = v_
                     out[f"_{lane}_{nm}_r"][vi] = r_
+        if self.granular is not None:
+            out["_mod_amt"] = self.modulation.amounts.copy()
+            out["_mod_bip"] = self.modulation.bipolar.copy()
+            # grain read speed = voice speed x 2^(sem/12), |sem| <= var <= 1
+            # semitone (granular.rs:700-717 variation draws); the mono
+            # buffer is pre-resampled to the engine rate (ratio 1).  The
+            # config's max_read_speed caps the bound either way.
+            b = min(rs.speed_bucket(
+                        self._max_step_bound(voices, include_ratio=False)
+                        * 2.0 ** (1.0 / 12.0)),
+                    rs.speed_bucket(self.granular.max_read_speed))
+        else:
+            b = rs.speed_bucket(self._max_step_bound(voices))
         # step bound (monotone: a shrinking bound would change the clamp
         # mid-note)
-        b = rs.speed_bucket(self._max_step_bound(voices))
         self._spd_bucket = max(b, getattr(self, "_spd_bucket", 0))
         out["_smax"] = np.float32(2.0 ** self._spd_bucket)
-        # _loop_* inputs exist only when looping can engage (_can_loop)
-        if self._can_loop():
+        # _loop_* inputs exist only when looping can engage (_can_loop);
+        # granular always lowers them
+        if self.granular is not None or self._can_loop():
             rng = self._loop_at(block_start)
             out["_loop_on"] = np.float32(0.0 if rng is None else 1.0)
             out["_loop_start"] = np.float32(0.0 if rng is None else rng[0])
@@ -447,12 +587,16 @@ class Sampler(Generator):
     # ------------------------------------------------------------------
 
     def init_state(self, ctx: BuildCtx):
-        """Each voice's carried read position ``base + frac``; the sample
-        data lives in the pool's buffer table (graph/batching.LeafBatch)."""
+        """Each voice's carried read position ``base + frac`` and, in granular
+        mode, its grain pool; the sample data lives in the pool's buffer
+        table (graph/batching.LeafBatch)."""
         self._sr = ctx.sample_rate
         v = self.options.voices
-        return {"base": torch.zeros(v, dtype=torch.int32, device=ctx.device),
-                "frac": torch.zeros(v, dtype=torch.float32, device=ctx.device)}
+        st = {"base": torch.zeros(v, dtype=torch.int32, device=ctx.device),
+              "frac": torch.zeros(v, dtype=torch.float32, device=ctx.device)}
+        if self.granular is not None:
+            st["grains"] = grain_state_init(POOL_SIZE, v, ctx.device)
+        return st
 
     def process(self, state, params, voices, smax: float, live: dict,
                 read, ctx: BuildCtx):
@@ -577,3 +721,141 @@ class Sampler(Generator):
         mix = torch.stack([c.sum(dim=1) for c in chans], dim=1)
         return {"base": new_base.to(torch.int32),
                 "frac": end_pos - new_base}, mix
+
+    def process_granular(self, state, params, voices, smax: float,
+                         frame0: int, read, ctx: BuildCtx):
+        """Render a granular sampler, a generator pool of one (leading
+        dimension 1 on the state, the parameters and the voice arrays), with
+        the modulation matrix feeding the 7 granular targets.
+
+        The voices' note logic and modulation run once per block over
+        ``[V, n]``.  The grain pools then allocate chunk by chunk (the JAX
+        package's hoisted-read formulation, sampler.py:1029-1083): each
+        chunk's read positions and weights go into ``[V*POOL, n]`` tensors,
+        and since the reads never feed back into allocation, every grain of
+        the block is read in ONE ``read`` call afterwards ([V*POOL, n]
+        positions -> [V*POOL, 1, n], the pool's ramp_read), then mixed
+        with each chunk's pans and shaped by the voice AHDSR.
+        ``frame0`` is the block's global start frame.  Returns (new state,
+        audio [1, ch, n])."""
+        n = ctx.block_frames
+        sr = ctx.sample_rate
+        nv = self.options.voices
+        dev = state["base"].device
+        f32 = torch.float32
+        p = {k: x[0] for k, x in params.items()}  # [n]
+        vs = {k: x[0] for k, x in voices.items()}  # [V], [S, T] or 0-d
+        frames = len(self._mono_buffer(sr))
+        # runtime loop range, normalized over the source length
+        inv_len = np.float32(1.0 / float(self.buffer.frames))
+        loop_norm = (vs["_loop_on"], vs["_loop_start"] * inv_len,
+                     vs["_loop_end"] * inv_len)
+        # grain read speed cap: the config's, within the host's step bound
+        eff_mrs = min(float(self.granular.max_read_speed), smax)
+
+        i = torch.arange(n, dtype=torch.int64, device=dev)
+        pitch = torch.exp2((p[TRANSPOSE.id] * recip32(12.0)
+                            + p[FINETUNE.id] * recip32(1200.0)).to(torch.float64)
+                           ).to(f32)
+
+        # --- the voices' note logic over [V, n] (a steal switches a voice
+        # from its continuing note to the retriggered one at _trig_time) ---
+        t_time = vs["_trig_time"].to(torch.int64)
+        has_trig = (t_time < n) & (vs["_trig_vol"] > 0.0)
+        sel = (i >= t_time[:, None]) & has_trig[:, None]
+        c_on = vs["_cont_active"] > 0.5
+        c_age0 = vs["_cont_age0"].to(torch.int64)
+
+        def note_value(trig, cont):
+            return torch.where(sel, trig[:, None], cont[:, None])
+
+        age = torch.where(sel, i - t_time[:, None], c_age0[:, None] + i)
+        note = note_value(vs["_trig_note"], vs["_cont_note"])
+        nvol = note_value(vs["_trig_vol"], vs["_cont_vol"] * vs["_cont_active"])
+        npan = note_value(vs["_trig_pan"], vs["_cont_pan"])
+        rel = note_value(vs["_trig_rel"], vs["_cont_rel"])
+        active = sel | c_on[:, None]
+        held = active & (age.to(f32) < rel) & (nvol > 0.0)
+        note_start = torch.where(has_trig, frame0 + t_time,
+                                 torch.where(c_on, frame0 - c_age0, NEVER))
+        # per-note speed automation applies at block granularity for grains
+        # (the pool re-reads speed per trigger, granular.rs:504)
+        speed = pitch * note_value(vs["_trig_spd"], vs["_cont_spd"])
+
+        # modulation sources and targets of every voice
+        voice_no = torch.arange(1, nv + 1, dtype=torch.int64, device=dev)
+        src = eval_sources(build_source_specs(self.mod_config, p, sr), age,
+                           nvol, note, rel, n,
+                           seed=(self.seed ^ (0x9E37 * voice_no))[:, None])
+        mods = apply_matrix(src, vs["_mod_amt"], vs["_mod_bip"],
+                            source_polarity(self.mod_config))  # [V, 7, n]
+        per_sample = dict(
+            held=held, speed=speed, vol=p[VOLUME.id] * nvol,
+            pan=torch.clamp(p[PANNING.id] + npan, -1.0, 1.0),
+            size_ms=p[GRAIN_SIZE.id] * (1.0 + mods[:, 0]),
+            density=p[GRAIN_DENSITY.id] * (1.0 + mods[:, 1]),
+            variation=p[GRAIN_VARIATION.id] + mods[:, 2],
+            spray=p[GRAIN_SPRAY.id] + mods[:, 3],
+            pan_spread=p[GRAIN_PAN_SPREAD.id] + mods[:, 4],
+            position=p[GRAIN_POSITION.id], pos_mod=mods[:, 5],
+            step=p[GRAIN_STEP.id], speed_mod=mods[:, 6],
+            window_mode=p[GRAIN_WINDOW.id].to(torch.int64),
+            direction=p[GRAIN_DIRECTION.id].to(torch.int64),
+        )
+
+        # --- allocation, chunk by chunk ------------------------------------
+        cn = (_GRANULAR_CHUNK if n > _GRANULAR_CHUNK and n % _GRANULAR_CHUNK == 0
+              else n)
+        alloc = dict(
+            n=cn, sr=sr, frames=frames, loop_range=loop_norm,
+            note_start=note_start,
+            overlap_mode=p[GRAIN_OVERLAP.id][0].to(torch.int64),
+            window_table=window_table(dev),
+            seed=self.seed ^ (voice_no * 0x51ED),
+            max_triggers=int(math.ceil(100.0 * cn / sr)) + 2,
+            max_read_speed=eff_mrs)
+        grains = {k: x[0] for k, x in state["grains"].items()}
+        positions = torch.empty((nv, POOL_SIZE, n), dtype=f32, device=dev)
+        weights = torch.empty_like(positions)
+        pans = []
+        for t0 in range(0, n, cn):
+            grains, fidx, g = granular_voice_alloc(
+                grains, frame0=frame0 + t0, **alloc,
+                **{k: x[..., t0:t0 + cn] for k, x in per_sample.items()})
+            # the read's table is the source extended by one frame each side
+            torch.add(fidx, 1.0, out=positions[..., t0:t0 + cn])
+            weights[..., t0:t0 + cn] = g
+            pans.append(grains["g_pan"])
+
+        # --- every grain of the block in one read, then the mix -------------
+        s = read(positions.view(nv * POOL_SIZE, n)).view(nv, POOL_SIZE, n)
+        del positions
+        chunks = n // cn
+
+        def by_chunk(x):  # [V, P, n] -> [V, chunks, P, cn]
+            return x.view(nv, POOL_SIZE, chunks, cn).transpose(1, 2)
+
+        audio = grain_mix(by_chunk(s), by_chunk(weights),
+                          torch.stack(pans, dim=1))  # [V, chunks, 2, cn]
+        del s, weights
+        audio = audio.transpose(1, 2).reshape(nv, 2, n)
+
+        # voice-level AHDSR after the grain mix (voice.rs:470-486)
+        if self.envelope is not None:
+            env_p = ahdsr_ops.ahdsr_params(sr, *(p[q.id][0] for q in (
+                ENV_ATTACK, ENV_HOLD, ENV_DECAY, ENV_SUSTAIN, ENV_RELEASE)))
+            env_a = ahdsr_ops.ahdsr_block(env_p, 1.0, c_age0[:, None],
+                                          vs["_cont_rel"][:, None], n)
+            env_b = ahdsr_ops.ahdsr_block(env_p, 1.0, -t_time[:, None],
+                                          vs["_trig_rel"][:, None], n)
+            env = torch.where(sel, env_b, env_a * c_on.to(f32)[:, None])
+        else:
+            env = active.to(f32)
+        mix = (audio * env[:, None, :]).sum(dim=0)
+        if ctx.channels == 1:
+            mix = ((mix[0] + mix[1]) * 0.5)[None, :]
+        elif ctx.channels > 2:
+            mix = torch.cat([mix, mix.new_zeros((ctx.channels - 2, n))])
+        new_state = dict(state)
+        new_state["grains"] = {k: x[None] for k, x in grains.items()}
+        return new_state, mix[None]

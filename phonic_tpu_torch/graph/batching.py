@@ -237,18 +237,32 @@ class FileBatch:
                                          panning, stop_at)
 
 
+def stack_states(states: list):
+    """Stack per-lane states (dicts / NamedTuples of tensors) along a new
+    leading dimension."""
+    s0 = states[0]
+    if isinstance(s0, torch.Tensor):
+        return torch.stack(states)
+    if isinstance(s0, dict):
+        return {k: stack_states([s[k] for s in states]) for k in s0}
+    return type(s0)(*(stack_states(list(xs)) for xs in zip(*states)))
+
+
 class LeafBatch:
     """A generator pool (port of ``LeafBatch`` from
     ``phonic_tpu/graph/batching.py``): samplers with equal
     ``source_batch_key`` render as one call of the first sampler's
     ``process`` over a leading sampler dimension G, their voices as lanes
-    [G, V].
+    [G, V].  A granular sampler (key None) is a pool of its own and renders
+    through ``process_granular``.
 
-    Each sampler's buffer is one row of the pool's table, zero-padded to
-    the longest (its live length rides in as ``_buf_frames``); ``smap`` maps
-    each voice lane to its sampler's row, so every voice of the pool reads
-    in one ``ramp_read`` per block.  The block's lowered voice arrays go to
-    the device in one host-to-device copy."""
+    Each sampler's read source (``read_table``: its buffer, or the granular
+    mono buffer extended for the circular taps) is one row of the pool's
+    table, zero-padded to the longest (a sampled buffer's live length rides
+    in as ``_buf_frames``); ``smap`` maps each read lane (a voice, or a grain
+    slot) to its sampler's row, so the whole pool reads in one
+    ``ramp_read`` per block.  The block's lowered voice arrays go to the
+    device in one host-to-device copy."""
 
     def __init__(self, nodes: list, paths: list[str], ctx):
         self.nodes = nodes
@@ -256,20 +270,19 @@ class LeafBatch:
         self.ctx = ctx
         self.proto = nodes[0]
         dev = ctx.device
-        fmax = max(s.buffer.frames for s in nodes)
-        table = np.zeros((len(nodes), self.proto.buffer.channels, fmax + 1),
-                         np.float32)
-        for i, s in enumerate(nodes):
-            table[i, :, : s.buffer.frames + 1] = np.asarray(s.buffer.data)
+        rows, lanes = zip(*(s.read_table(ctx.sample_rate) for s in nodes))
+        table = np.zeros((len(nodes), rows[0].shape[0],
+                          max(r.shape[-1] for r in rows)), np.float32)
+        for i, r in enumerate(rows):
+            table[i, :, : r.shape[-1]] = r
         self.table = torch.as_tensor(table, device=dev)
-        self.smap = torch.arange(len(nodes), dtype=torch.int32,
-                                 device=dev).repeat_interleave(
-                                     self.proto.options.voices)
+        self.smap = torch.repeat_interleave(
+            torch.arange(len(nodes), dtype=torch.int32, device=dev),
+            torch.tensor(lanes, device=dev), output_size=sum(lanes))
 
     def init_state(self):
-        """Each sampler's voice positions, stacked: [G, V]."""
-        states = [s.init_state(self.ctx) for s in self.nodes]
-        return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+        """Each sampler's state, stacked: [G, V, ...]."""
+        return stack_states([s.init_state(self.ctx) for s in self.nodes])
 
     def upload(self, lowered: list[dict]):
         """The samplers' lowered inputs (one dict each) -> (tensors [G, ...]
@@ -309,9 +322,13 @@ class LeafBatch:
         """Every voice lane's read: [G*V, n] -> [G*V, ch, n]."""
         return rampread.ramp_read(self.table, self.smap, positions)
 
-    def render(self, state, params, lowered: list[dict]):
+    def render(self, state, params, lowered: list[dict], frame0: int):
         """params: each sampler parameter [G, n]; lowered: each sampler's
-        ``lower_block_inputs``.  Returns (new state, out [G, ch, n])."""
+        ``lower_block_inputs``; frame0: the block's global start frame.
+        Returns (new state, out [G, ch, n])."""
         voices, smax, live = self.upload(lowered)
+        if self.proto.granular is not None:
+            return self.proto.process_granular(state, params, voices, smax,
+                                               frame0, self.read, self.ctx)
         return self.proto.process(state, params, voices, smax, live,
                                   self.read, self.ctx)

@@ -35,7 +35,8 @@ from ..events import ParamTimeline
 from ..generators.sampler import Sampler
 from ..ops import smoothing
 from ..sources.file import NEVER, FileSource
-from .batching import FileBatch, LeafBatch, group_key as _file_group_key
+from .batching import (FileBatch, LeafBatch, group_key as _file_group_key,
+                       stack_states)
 from .mixer import Mixer
 from .nodes import BuildCtx, Node
 
@@ -66,17 +67,6 @@ class _FrozenMixer:
 def _freeze_mixer(m: Mixer) -> _FrozenMixer:
     return _FrozenMixer(m.name, tuple(m.sources), tuple(m.effects),
                         tuple(_freeze_mixer(c) for c in m.children))
-
-
-def stack_states(states: list):
-    """Stack per-lane states (dicts / NamedTuples of tensors) along a new
-    leading dimension."""
-    s0 = states[0]
-    if isinstance(s0, torch.Tensor):
-        return torch.stack(states)
-    if isinstance(s0, dict):
-        return {k: stack_states([s[k] for s in states]) for k in s0}
-    return type(s0)(*(stack_states(list(xs)) for xs in zip(*states)))
 
 
 class RenderProgram:
@@ -175,16 +165,18 @@ class RenderProgram:
     def _build_source_batches(self):
         """Every file source renders as a lane of a FileBatch: one bank per
         group of homogeneous sources; every sampler as part of a generator
-        pool (LeafBatch): one pool per ``source_batch_key``.  With
-        ``batch_sources`` off, each source is a bank or pool of its own."""
+        pool (LeafBatch): one pool per ``source_batch_key`` (a key of None,
+        a granular sampler's, is a pool of its own).  With ``batch_sources``
+        off, each source is a bank or pool of its own."""
         groups: dict[tuple, list[str]] = {}
         pools: dict[tuple, list[str]] = {}
         batch = self.config.batch_sources
         for i, path in enumerate(self.source_paths):
             node = self.nodes[path]
             if isinstance(node, Sampler):
-                key = node.source_batch_key(self.ctx) if batch else i
-                pools.setdefault(key, []).append(path)
+                key = node.source_batch_key(self.ctx) if batch else None
+                pools.setdefault(("alone", i) if key is None else key,
+                                 []).append(path)
             else:
                 key = _file_group_key(node) if batch else i
                 groups.setdefault(key, []).append(path)
@@ -468,7 +460,8 @@ class RenderProgram:
         for pi, pool in enumerate(self.pools):
             params = {pid: rows(sel) for pid, sel in self._pool_rows[pi].items()}
             pool_state, out = pool.render(state["pools"][pi], params,
-                                          [extra[p] for p in pool.paths])
+                                          [extra[p] for p in pool.paths],
+                                          frame0)
             new_pools.append(pool_state)
             for i, p in enumerate(pool.paths):
                 source_out[p] = out[i]

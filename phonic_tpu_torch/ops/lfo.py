@@ -48,9 +48,15 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 def _hash_random(seed, k) -> torch.Tensor:
     """Deterministic uniform [-1, 1) float32 value for integer counter k: the
     JAX package's uint32 splitmix-style hash, emulated in int64 (PyTorch's
-    uint32 has few operations) with every product and shift kept mod 2**32."""
+    uint32 has few operations) with every product and shift kept mod 2**32.
+    ``seed`` is an int or an integer tensor that broadcasts against ``k``
+    (one seed per voice)."""
     x = torch.as_tensor(k).to(torch.int64) & _M32
-    x = _mul32(x, 0x9E3779B9) ^ (int(seed) & _M32)
+    if isinstance(seed, torch.Tensor):
+        seed = seed.to(torch.int64) & _M32
+    else:
+        seed = int(seed) & _M32
+    x = _mul32(x, 0x9E3779B9) ^ seed
     x = _mul32(x ^ (x >> 16), 0x85EBCA6B)
     x = _mul32(x ^ (x >> 13), 0xC2B2AE35)
     x = x ^ (x >> 16)

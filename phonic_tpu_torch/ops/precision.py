@@ -7,6 +7,20 @@ over hours use a (hi, lo) float32 pair with error-free transformations.
 
 from __future__ import annotations
 
+import numpy as np
+
+
+def recip32(c) -> float:
+    """The float32 reciprocal of a constant, as a Python float.
+
+    Where the JAX package divides a float32 array by a constant, XLA
+    multiplies by this reciprocal instead (and folds it into a constant
+    factor before it, ``x * a / b`` -> ``x * f32(a * recip32(b))``).  The
+    port writes the product out: it then rounds as JAX does, and as the
+    card does too (CUDA's division by a host scalar is also a product with
+    its reciprocal, while the CPU's divides)."""
+    return float(np.float32(1.0) / np.float32(c))
+
 
 def two_sum(a, b):
     """Error-free transformation: a + b = s + e exactly."""

@@ -436,12 +436,24 @@ def test_sampler_program_needs_a_card():
 
 
 def test_unported_surface_raises():
+    """What is still refused.  The granular calls, which raised before the
+    granular slice, now work: modulation needs granular playback first (as
+    in the JAX package), and routings take the config's source and target
+    ids."""
     s = pt.Sampler(_tone(pt, 1000))
-    for call in (lambda: s.with_granular_playback(),
-                 lambda: s.with_modulation(None),
-                 lambda: s.set_modulation("LFO 1", "Position", 0.5)):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(ValueError, match="with_granular_playback"):
+        s.with_modulation(pt.ModulationConfig(
+            sources=(pt.VelocitySource(),), targets=psampler.TARGETS))
+    assert s.with_granular_playback() is s and s.granular is not None
+    assert s.with_modulation(pt.ModulationConfig(
+        sources=(pt.LfoSource("LFO1"), pt.EnvelopeSource("ENV1")),
+        targets=psampler.TARGETS)) is s
+    s.set_modulation("ENV1", "GPOS", 0.5)
+    assert s.modulation.amounts[1, 5] == 0.5
+    s.clear_modulation("ENV1", "GPOS")
+    assert not s.modulation.amounts.any()
+    with pytest.raises(KeyError):
+        s.set_modulation("LFO 1", "Position", 0.5)
     with pytest.raises(RuntimeError, match="prepare"):
         s.lower_block_inputs(0, BLOCK)
 
