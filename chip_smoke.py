@@ -1,7 +1,8 @@
 """GPU smoke test of the PyTorch port: build the CUDA kernels, check each
 against its plain PyTorch version on the card, then render the headline
-mixer graph, the mastering chain, the 64-voice sampler, the play_file path
-and the granular sampler at full width on the card and check them.
+mixer graph, the mastering chain, the 64-voice sampler, the play_file path,
+the granular sampler and the live Player at full width on the card and
+check them.
 
     python3 chip_smoke.py
 
@@ -62,12 +63,27 @@ phase fails.  Phases:
    grains full at 100 Hz density, over a 96000-frame tone, 131072-frame
    blocks at 48 kHz stereo), checked the same way; every grain of a block
    reads in exactly one ramp_read, and float32 matrix products must not
-   run in TF32 (the grain mix is one);
+   run in TF32 (the grain mix is one); (d) player_rt_8192 (bench.py's
+   ``config_player_rt``: the headline's 16 sources, sub-mixers and effects
+   in a ``Player`` at 8192-frame blocks, metering and auto-bypass on):
+   blocks 0-3 through ``render_block``, with the launch counters set to 0
+   just before (each of ramp_read, iir2 and iir1 must launch, ramp_read
+   exactly once per block); the audio and every mixer's peak and RMS
+   against the same Player on the CPU to -90 dB; 8 sources removed at
+   block 4 on both (a rebuild that adopts the running state) and blocks
+   4-5 compared the same way; then ``Player.run(8 * n)`` timed as bench.py
+   times it (at least 10 blocks and 1 s, host clock) at pipeline depth 1
+   and 3, with the number of retirement rebuilds it ran; and one file
+   source's ``cpu_load()`` (timed alone with CUDA events);
 7. under ``torch.profiler``, after every timed render (a profiler session
    slows the launches that follow it in the process): one more block of
    each path, which gives the device operations, the host-to-device
-   copies and the device time per block and the device's busy share
-   (device time over that block's wall time, both under the profiler);
+   copies, the ``cudaStreamSynchronize`` calls and the device time per
+   block and the device's busy share (device time over that block's wall
+   time, both under the profiler); the Player's block is one
+   ``render_block`` (packed inputs, step, copies back), and the
+   synchronising calls PyTorch reports in it (its sync debug mode) are
+   logged with where they come from;
    each kernel's kernel-only device time (the profiler's events of its own
    launches, and their number per call) and its share of its bound, at
    each path's shape and at the byte-bound shapes off the paths (iir2 and
@@ -81,6 +97,7 @@ of the shapes timed off the paths.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import functools
 import json
 import re
@@ -88,6 +105,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -99,13 +117,18 @@ from phonic_tpu_torch import kernels
 from phonic_tpu_torch.effects.delay import DelayEffect
 from phonic_tpu_torch.generators.granular import source_table
 from phonic_tpu_torch.granular1k import granular_program
-from phonic_tpu_torch.headline import mixer_graph_program
+from phonic_tpu_torch.headline import mixer_graph_program, tone
 from phonic_tpu_torch.io import wav as wav_io
 from phonic_tpu_torch.io.decoder import AudioFileBuffer
 from phonic_tpu_torch.mastering import mastering_program
 from phonic_tpu_torch.ops import chrono, follower, rampread, resample, scan
 from phonic_tpu_torch.play_file import (
     BLOCK_FRAMES as PLAY_BLOCK, file_program, play_file_program, render_file,
+)
+from phonic_tpu_torch.outputs.null import NullOutput
+from phonic_tpu_torch.player import Player, PlayerConfig
+from phonic_tpu_torch.player_rt import (
+    BLOCK_FRAMES as PLAYER_BLOCK, player_rt_player,
 )
 from phonic_tpu_torch.sampler64 import sampler_program
 from phonic_tpu_torch.sources.file import FilePlaybackOptions
@@ -296,6 +319,7 @@ def ramp_expected(src, smap, pos):
 RAMP_CASES = (
     (1, 1, 1, 48001, PLAY_BLOCK, "play_file", "loop"),
     (16, 1, 16, 26656, BLOCK, "headline", "ramps"),
+    (16, 1, 16, 26656, PLAYER_BLOCK, "player", "ramps"),
     (4, 1, 4, 48001, BLOCK, "mastering", "ramps"),
     (16, 1, 16, 26656, 1000, None, "ramps"),
     (16, 2, 16, 26656, BLOCK, None, "ramps"),
@@ -373,7 +397,8 @@ def check_kernels(dev):
     # paths' shapes: one segment (4096 samples) and one off, odd lengths
     # (rows that start unaligned), one row and forty
     for r, t, path in ((8, BLOCK, "headline"), (2, 8192, "mastering"),
-                       (2, BLOCK, None), (1, 4095, None), (1, 4096, None),
+                       (8, PLAYER_BLOCK, "player"), (2, BLOCK, None),
+                       (1, 4095, None), (1, 4096, None),
                        (1, 4097, None), (2, 4097, None), (8, 4097, None),
                        (3, 12289, None), (40, BLOCK, None), (40, 4097, None)):
         args = (uniform(0.7, 0.95, (r, t)), uniform(-0.04, 0.04, (r, t)),
@@ -388,7 +413,8 @@ def check_kernels(dev):
     # beside the paths' shapes: two segments (2 x 4096 samples) and one off,
     # rows that start unaligned and cross a segment, forty rows
     for r, t, path in ((2, BLOCK, "headline"), (2, 8192, "mastering"),
-                       (2, 999, None), (7, BLOCK, None), (7, 999, None),
+                       (2, PLAYER_BLOCK, "player"), (2, 999, None),
+                       (7, BLOCK, None), (7, 999, None),
                        (1, 8191, None), (1, 8192, None), (1, 8193, None),
                        (1, 16385, None), (3, 8193, None), (40, BLOCK, None)):
         a, b, y0 = uniform(0.7, 0.999, (r, t)), normal((r, t)), normal(r)
@@ -753,23 +779,168 @@ def decoded_file(dev, tmp):
     return prog
 
 
-def device_busy(name, prog):
-    """Render one block after a warm-up block under ``torch.profiler`` and
-    log its device operations, host-to-device copies, device time, wall
-    time and busy share."""
-    state, _ = prog.step(prog.init_state(), prog.block_inputs(0))
-    torch.cuda.synchronize()
+def profile_block(run):
+    """Run one block (``run()``) under ``torch.profiler``.  Returns its
+    device operations, host-to-device copies, ``cudaStreamSynchronize``
+    calls, device ms, wall ms, ``cudaMemcpyAsync`` calls and the device's
+    copies by name."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, y = prog.step(state, prog.block_inputs(1))
-        y.cpu()
+        run()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    ops = [e for e in events if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
     h2d = sum("HtoD" in e.name for e in ops)
-    log(f"  {name}: one block under the profiler: {len(ops)} device operations "
-        f"({h2d} host-to-device copies), {device_ms:.2f} ms of device time in "
-        f"{wall_ms:.1f} ms of wall: device busy {100 * device_ms / wall_ms:.1f} %")
+    host = collections.Counter(e.name for e in events
+                               if e.device_type == DeviceType.CPU)
+    copies = collections.Counter(e.name for e in ops if "Memcpy" in e.name)
+    return (len(ops), h2d, host["cudaStreamSynchronize"], device_ms, wall_ms,
+            host["cudaMemcpyAsync"], copies)
+
+
+def log_busy(name, ops, h2d, syncs, device_ms, wall_ms, memcpy_calls,
+             copies):
+    log(f"  {name}: one block under the profiler: {ops} device operations "
+        f"({h2d} host-to-device copies), {syncs} cudaStreamSynchronize, "
+        f"{device_ms:.2f} ms of device time in {wall_ms:.1f} ms of wall: "
+        f"device busy {100 * device_ms / wall_ms:.1f} %; "
+        f"{memcpy_calls} cudaMemcpyAsync, copies {dict(copies)}")
+
+
+def device_busy(name, prog):
+    """Render one block after a warm-up block under ``torch.profiler`` and
+    log its device operations, host-to-device copies, stream
+    synchronisations, device time, wall time and busy share."""
+    state, _ = prog.step(prog.init_state(), prog.block_inputs(0))
+    torch.cuda.synchronize()
+    log_busy(name, *profile_block(
+        lambda: prog.step(state, prog.block_inputs(1))[1].cpu()))
+
+
+def player_busy(player):
+    """One ``render_block`` of the Player (packed inputs, the step, the
+    copies of its audio and levels back) under the profiler, logged as
+    ``device_busy`` logs a block; then one more with PyTorch's sync debug
+    mode on, logging each synchronising call it reports and where."""
+    player.render_block()
+    torch.cuda.synchronize()
+    log_busy("player", *profile_block(player.render_block))
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            player.render_block()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    where = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno} {str(w.message)[:60]}"
+        for w in caught)
+    log(f"  player: {len(caught)} synchronising calls reported in one "
+        f"render_block{': ' if where else ''}"
+        + "; ".join(f"{k} (x{v})" for k, v in where.items()))
+
+
+def player_blocks(player, blocks):
+    """Render ``blocks`` blocks through ``render_block``: the audio, and
+    per block every mixer's peak and RMS in walk order, [mixers, 2, ch]."""
+    audio, levels = [], []
+    for _ in range(blocks):
+        audio.append(player.render_block())
+        levels.append(np.array([
+            [player.mixer_audio_level(obj).peak,
+             player.mixer_audio_level(obj).rms]
+            for _, kind, obj in player.main_mixer.walk() if kind == "mixer"]))
+    return np.concatenate(audio, axis=1), levels
+
+
+def against_cpu_player(name, got, ref, first=0):
+    """Blocks ``first``, ... of a card Player against the same Player on the
+    CPU: the audio and every mixer's levels to -90 dB of the block's
+    peak."""
+    (audio, levels), (want, want_levels) = got, ref
+    n = PLAYER_BLOCK
+    for b, (lv, wlv) in enumerate(zip(levels, want_levels)):
+        sl = slice(b * n, (b + 1) * n)
+        err = float(np.abs(audio[:, sl] - want[:, sl]).max())
+        rpeak = float(np.abs(want[:, sl]).max())
+        lerr = float(np.abs(lv - wlv).max()) if lv.shape == wlv.shape else np.inf
+        log(f"  block {first + b}: max_abs_err {err:.3e} vs CPU, peak "
+            f"{rpeak:.4f}, {20 * np.log10(max(err, 1e-30) / rpeak):.1f} dB; levels of "
+            f"{len(lv)} mixers {lerr:.3e}")
+        if not (err <= DB90 * rpeak and lerr <= DB90 * rpeak):
+            raise RuntimeError(f"{name}: block {b} disagrees with the CPU")
+
+
+def time_player(player, depth, min_blocks=10, min_secs=1.0):
+    """bench.py's pump loop: ``run(8 * n)`` until at least ``min_blocks``
+    blocks and ``min_secs`` seconds (host clock; ``run`` returns once its
+    last block is on the host).  Returns (x realtime, blocks, seconds)."""
+    player.config.pipeline_depth = depth
+    n = player.engine_config.block_frames
+    torch.cuda.synchronize()
+    blocks, t0 = 0, time.perf_counter()
+    while True:
+        player.run(8 * n)
+        blocks += 8
+        if blocks >= min_blocks and time.perf_counter() - t0 > min_secs:
+            break
+    dt = time.perf_counter() - t0
+    return blocks * n / SR / dt, blocks, dt
+
+
+def player_phase(dev):
+    """Phase 6d.  Returns the launches of the main path's run and a warm
+    player_rt Player for phase 7."""
+    player = player_rt_player(device=dev)
+    cpu = player_rt_player(device="cpu")
+    reset_counters()
+    t0 = time.perf_counter()
+    got = player_blocks(player, 4)
+    log(f"  blocks 0-3 through render_block in "
+        f"{time.perf_counter() - t0:.3f} s (block 0 builds the program)")
+    launches = read_counters()
+    idle = [k for k in ("ramp_read", "iir2", "iir1") if launches[k] < 4]
+    if idle or launches["ramp_read"] != 4:
+        raise RuntimeError(f"player: kernels of the path idle {idle}, or "
+                           "not one ramp_read per block")
+    check_audio("player", got[0], (2, 4 * PLAYER_BLOCK))
+    t0 = time.perf_counter()
+    ref = player_blocks(cpu, 4)
+    log(f"  CPU reference of 4 blocks: {time.perf_counter() - t0:.1f} s")
+    against_cpu_player("player", got, ref)
+    # a topology rebuild mid-render that adopts the running state
+    for p in (player, cpu):
+        for src in [o for _, k, o in p.main_mixer.walk() if k == "source"][::2]:
+            p.remove_source(src)
+    got, ref = player_blocks(player, 2), player_blocks(cpu, 2)
+    log(f"  8 of 16 sources removed at block 4: {player.rebuilds} rebuild, "
+        f"{len(player._program.source_paths)} sources left")
+    if player.rebuilds != 1:
+        raise RuntimeError("player: the removal did not rebuild once")
+    against_cpu_player("player after the rebuild", got, ref, first=4)
+    # bench.py's timing, on the full graph: depths in turns
+    player = player_rt_player(device=dev)
+    player.render_block()
+    for depth in (1, 3, 3, 1):
+        rate, blocks, secs = time_player(player, depth)
+        log(f"  Player.run at pipeline depth {depth}: {blocks} blocks in "
+            f"{secs:.3f} s: {rate:.2f}x realtime")
+    log(f"  retirement rebuilds during the timed runs: {player.rebuilds} "
+        "(the sources are endless, repeat=None)")
+    # the per-source CPU-load probe: one source alone, timed with CUDA
+    # events on the card
+    probe = Player(NullOutput(SR, 2), PlayerConfig(block_frames=PLAYER_BLOCK),
+                   device=dev)
+    handle = probe.play_file(tone(frames=26655), FilePlaybackOptions(
+        repeat=None, measure_cpu_load=True))
+    probe.render_block()
+    load = handle.cpu_load()
+    log(f"  source_cpu_load of one file source: average {load.average:.2e}, "
+        f"peak {load.peak:.2e} of a block's {PLAYER_BLOCK / SR:.3f} s")
+    if not 0.0 < load.average <= load.peak:
+        raise RuntimeError(f"source_cpu_load: {load}")
+    return launches, player
 
 
 def roll_cost(prog, dev, reps=200):
@@ -883,11 +1054,14 @@ def main():
     paths["granular"], progs["granular"] = render_path(
         "granular", lambda d: granular_program(block_frames=BLOCK, device=d),
         dev, ("ramp_read",), once_per_block=("ramp_read",))
+    phase("6d: player_rt_8192, bench.py's config_player_rt, on the card")
+    paths["player"], player = player_phase(dev)
     # a profiler session leaves launches slower for the rest of the process,
     # so every profiled number comes after the timed renders
     phase("7: under the profiler")
     for name, prog in progs.items():
         device_busy(name, prog)
+    player_busy(player)
     kernel_times(calls)
     log("  the headline graph again, after the profiler:")
     timed_render(progs["headline"], 4)

@@ -59,8 +59,11 @@ class EngineConfig:
     # run sibling mixers' identical effect chains as one batched chain with
     # a leading lane dimension (see Effect.batch_key)
     batch_effects: bool = True
-    # per-mixer peak/RMS levels and silence auto-bypass: not in this port yet
+    # the step also returns every mixer's peak/RMS levels (the Player's
+    # metering)
     meter_mixers: bool = False
+    # skip (pass through, state kept) an effect whose input has been silent
+    # for longer than its worst-case tail + 2 s (the Player's effects)
     auto_bypass: bool = False
     # dtype used for audio samples.
     dtype: torch.dtype = torch.float32
@@ -68,12 +71,6 @@ class EngineConfig:
     # take float32 only; float64 runs on the CPU plain versions.
     scan_dtype: torch.dtype = torch.float32
     device: Union[str, torch.device] = "cuda"
-
-    def __post_init__(self):
-        if self.meter_mixers:
-            raise NotImplementedError("meter_mixers is not ported yet")
-        if self.auto_bypass:
-            raise NotImplementedError("auto_bypass is not ported yet")
 
 
 DEFAULT_CONFIG = EngineConfig()

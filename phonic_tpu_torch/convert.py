@@ -64,7 +64,8 @@ def state_from_jax(np_state, program):
     chains; where it does not, the node's own entry is used and gets the
     port's lane dimension of 1.  A granular sampler is never batched: its
     state, grain pools included, is its node's own, and it takes no
-    ``gen_batches`` entry."""
+    ``gen_batches`` entry.  Under auto-bypass the silence ages map onto
+    each chain's [stages, lanes] matrix."""
     template = program.init_state()
     smoothers = {key: _like(t, np_state["smoothers"][key], f"smoothers{key}")
                  for key, t in template["smoothers"].items()}
@@ -100,5 +101,20 @@ def state_from_jax(np_state, program):
             per_effect = [_node(np_state, p) for p in c["effect_paths"][0]]
         chains.append([_like(ti, si, eps) for ti, si, eps in
                        zip(t, per_effect, c["effect_paths"][0])])
-    return {"smoothers": smoothers, "file_batches": file_batches,
-            "pools": pools, "chains": chains}
+    state = {"smoothers": smoothers, "file_batches": file_batches,
+             "pools": pools, "chains": chains}
+    if "bypass" in template:
+        # silence ages: the JAX package keys an unbatched effect's by its
+        # path and a batched group's [stages, lanes] matrix by
+        # ``__batch{gid}``; the port holds one [stages, lanes] per chain
+        ages, gid = [], 0
+        for c, t in zip(program.chains, template["bypass"]):
+            if len(c["mixers"]) >= 2:
+                a = np_state["bypass"][f"__batch{gid}"]
+                gid += 1
+            else:
+                a = np.array([[np_state["bypass"][p]]
+                              for p in c["effect_paths"][0]])
+            ages.append(_like(t, a, f"bypass/{c['mixer_paths'][0]}"))
+        state["bypass"] = ages
+    return state

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..graph.nodes import BuildCtx, Effect
-from ..ops import filters
+from ..ops import consts, filters
 from ..params import DecibelScaling, EnumParameter, FloatParameter, format_gain
 
 GAIN = FloatParameter(
@@ -45,10 +45,10 @@ class GainEffect(Effect):
         # the DC mode is a stepped enum read at block rate; the filter runs
         # in every mode and is selected per lane, as in the JAX package
         mode = params[DC_MODE.id][:, 0].to(torch.int64)
-        rs = torch.tensor(
+        rs = consts.const(
             [1.0] + [filters.dc_coefficient(ctx.sample_rate, m)
                      for m in ("slow", "default", "fast")],
-            dtype=torch.float32, device=x.device)
+            torch.float32, x.device)
         r = rs[torch.clamp(mode, 0, 3)]
         dc_state, filtered = filters.dc_process(state["dc"], y, r[:, None, None])
         on = mode > 0

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..graph.nodes import BuildCtx, Effect
-from ..ops import filters
+from ..ops import consts, filters
 from ..ops import ring as ring_ops
 from ..params import FloatParameter, format_percent
 
@@ -174,7 +174,11 @@ class ReverbEffect(Effect):
         # seeds, like the reference's reset which only flushes buffers
         reset = np.asarray(params.get("_reset", np.zeros(lanes))) > 0.5
         if reset.any():
-            keep = torch.as_tensor(~reset, device=dev)
+            # made on the device: a host array would be a copy that waits
+            # for the stream
+            keep = torch.ones(lanes, dtype=torch.bool, device=dev)
+            for lane in np.flatnonzero(reset):
+                keep[int(lane)] = False
 
             def flush(a):
                 return a * keep.view((lanes,) + (1,) * (a.dim() - 1)).to(a.dtype)
@@ -199,7 +203,7 @@ class ReverbEffect(Effect):
         regen = depth_factor * 0.5
 
         def factors(f):
-            return torch.as_tensor(np.asarray(f, np.float32), device=dev)
+            return consts.const(f, torch.float32, dev)
 
         line_delay = (factors(_LINE_FACTORS) * size0[:, None]).to(torch.int64)
         ap_delay = (factors(_AP_FACTORS) * size0[:, None]).to(torch.int64)
@@ -252,7 +256,7 @@ class ReverbEffect(Effect):
         # the fraction interpolating one sample newer; offset = (sin+1)*7
         # lies in [0, 14].  Reads happen after the reference's step()
         # (reverb.rs:284-301, 554-586): the vibrato phase is advanced once.
-        vib_inc = torch.as_tensor(_VIB_DEPTHS * VIB_SPEED, device=dev).to(dt)
+        vib_inc = consts.const(_VIB_DEPTHS * VIB_SPEED, dt, dev)
         vib_inc3 = vib_inc[:, None, None]
         h_ln = self._line_buf
         base_idx = (h_ln - line_delay)[:, :, None, None]  # [G, 8, 1, 1]
@@ -295,7 +299,7 @@ class ReverbEffect(Effect):
         # wrapped to [0, 2pi) (both operands >= 0, so fmod is the floor-mod)
         vib_phase = torch.fmod(
             state["vib_phase"] + vib_inc[:, None] * n,
-            torch.tensor(2.0 * math.pi, dtype=dt, device=dev))
+            consts.const(2.0 * math.pi, dt, dev))
 
         # ---- output chain: biquad B -> clamp -> asin -> biquad C -> + dry --
         coefs_b = filters.biquad_coefficients(filters.LOWPASS, sr, cutoff, 0.618034)

@@ -262,7 +262,7 @@ class LeafBatch:
     in as ``_buf_frames``); ``smap`` maps each read lane (a voice, or a grain
     slot) to its sampler's row, so the whole pool reads in one
     ``ramp_read`` per block.  The block's lowered voice arrays go to the
-    device in one host-to-device copy."""
+    device as one array (:meth:`stack`)."""
 
     def __init__(self, nodes: list, paths: list[str], ctx):
         self.nodes = nodes
@@ -284,16 +284,17 @@ class LeafBatch:
         """Each sampler's state, stacked: [G, V, ...]."""
         return stack_states([s.init_state(self.ctx) for s in self.nodes])
 
-    def upload(self, lowered: list[dict]):
-        """The samplers' lowered inputs (one dict each) -> (tensors [G, ...]
-        on the device, the pool's step bound, the live segments of each
-        automation knot array).
+    def stack(self, lowered: list[dict]):
+        """The samplers' lowered inputs (one dict each) -> (one flat int32
+        host array, its layout, the pool's step bound, the live segments of
+        each automation knot array).
 
         Every array is stacked over the samplers; a sampler that lacks an
         optional one (per-note automation knots, loop bounds) gets its
         identity (knots past the block, zeros).  The int32 and float32
-        arrays pack into one int32 host array, float32 values by their
-        bits, which is copied to the device at once and split there."""
+        arrays pack into one int32 array, float32 values by their bits, so
+        the pool's voices reach the device in one copy and split there
+        (:meth:`voices`)."""
         n = self.ctx.block_frames
         smax = max(float(d["_smax"]) for d in lowered)
         stacked, live = {}, {}
@@ -308,25 +309,34 @@ class LeafBatch:
             stacked[k] = a
             if k.endswith("_t"):
                 live[k] = 1 + int((a < n).sum(axis=-1).max(initial=0))
-        flat = torch.as_tensor(np.concatenate(
-            [a.reshape(-1).view(np.int32) for a in stacked.values()]),
-            device=self.ctx.device)
+        flat = np.concatenate([a.reshape(-1).view(np.int32)
+                               for a in stacked.values()])
+        layout = tuple((k, a.shape, a.dtype == np.float32)
+                       for k, a in stacked.items())
+        return flat, layout, smax, live
+
+    @staticmethod
+    def voices(flat: torch.Tensor, layout) -> dict:
+        """The flat int32 tensor of :meth:`stack` on the device -> the voice
+        arrays, as views of it."""
         out, off = {}, 0
-        for k, a in stacked.items():
-            t = flat[off:off + a.size].view(a.shape)
-            out[k] = t.view(torch.float32) if a.dtype == np.float32 else t
-            off += a.size
-        return out, smax, live
+        for k, shape, is_float in layout:
+            size = int(np.prod(shape))
+            t = flat[off:off + size].view(shape)
+            out[k] = t.view(torch.float32) if is_float else t
+            off += size
+        return out
 
     def read(self, positions):
         """Every voice lane's read: [G*V, n] -> [G*V, ch, n]."""
         return rampread.ramp_read(self.table, self.smap, positions)
 
-    def render(self, state, params, lowered: list[dict], frame0: int):
-        """params: each sampler parameter [G, n]; lowered: each sampler's
-        ``lower_block_inputs``; frame0: the block's global start frame.
-        Returns (new state, out [G, ch, n])."""
-        voices, smax, live = self.upload(lowered)
+    def render(self, state, params, voices: dict, smax: float, live: dict,
+               frame0: int):
+        """params: each sampler parameter [G, n]; voices, smax, live: the
+        block's voice arrays on the device and the host values of
+        :meth:`stack`; frame0: the block's global start frame.  Returns
+        (new state, out [G, ch, n])."""
         if self.proto.granular is not None:
             return self.proto.process_granular(state, params, voices, smax,
                                                frame0, self.read, self.ctx)

@@ -19,12 +19,18 @@ The JAX package compiles the step into one program and can scan it over
 blocks on the device; here ``render`` is a host loop over blocks and
 nothing is compiled, so the JAX package's recompile guard
 (``jit_cache_size``) has no counterpart.
+
+The live path (the Player) steps with :meth:`RenderProgram.step_packed`:
+every host array a block needs travels in one pinned buffer, one
+asynchronous copy per block, and the step reads views of it, so nothing in
+the step waits for the stream.  ``step`` copies the same arrays one by one
+and gives the same numbers bit for bit.
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -69,6 +75,87 @@ def _freeze_mixer(m: Mixer) -> _FrozenMixer:
                         tuple(_freeze_mixer(c) for c in m.children))
 
 
+# silence age a fresh program's effects start at: bypassed until audio
+# arrives (reference: EffectProcessor starts stopped, effect.rs:94-107)
+AGE_MAX = 1 << 30
+# an effect's input counts as silent at or below -60 dB
+# (reference: src/source/mixed/effect.rs:10-153)
+SILENCE = 1e-3
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves (tensors) of equally shaped state trees:
+    dicts, lists and tuples (NamedTuples included)."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, list):
+        return [tree_map(fn, *xs) for xs in zip(*trees)]
+    if isinstance(t0, tuple):
+        out = [tree_map(fn, *xs) for xs in zip(*trees)]
+        return type(t0)(*out) if hasattr(t0, "_fields") else tuple(out)
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_layout(tree):
+    """The tree's structure with each leaf's shape and dtype: equal layouts
+    hold equally shaped states."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, tree_layout(v)) for k, v in tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__, tuple(tree_layout(v) for v in tree))
+    return (tuple(tree.shape), str(tree.dtype))
+
+
+def _carry_rows(new, old, pairs):
+    """``new`` with row ``i`` replaced by ``old``'s row ``j`` for each
+    ``(i, j)`` of ``pairs``, on the leading dimension of every leaf, out of
+    place (a fresh state may share a tensor between two fields); rows whose
+    layouts differ are left as they are."""
+    pairs = [(i, j) for i, j in pairs
+             if tree_layout(tree_map(lambda a: a[i], new))
+             == tree_layout(tree_map(lambda a: a[j], old))]
+    if not pairs:
+        return new
+    dev = tree_leaves(new)[0].device
+    ni = torch.tensor([i for i, _ in pairs], dtype=torch.int64, device=dev)
+    oi = torch.tensor([j for _, j in pairs], dtype=torch.int64, device=dev)
+    return tree_map(lambda a, b: a.index_copy(0, ni, b.index_select(0, oi)),
+                    new, old)
+
+
+# numpy dtype (``dtype.str``) -> torch dtype, for views of a packed buffer
+_TORCH = {np.dtype(t).str: getattr(torch, t) for t in
+          ("float32", "float64", "int32", "int64", "bool")}
+
+
+class PackedInputs(NamedTuple):
+    """One block's inputs for :meth:`RenderProgram.step_packed`."""
+
+    inputs: dict  # the block's host inputs (numpy), for what the host reads
+    host: dict  # host values derived from them: segment counts, pool layouts
+    device: dict  # name -> device view of the block's one packed buffer
+
+
+class MixerLevels(dict):
+    """mixer path -> (peak [ch], rms [ch]), post-effects, as views of
+    ``stats`` ([2, mixers, ch]: peaks, then RMS), so one copy fetches every
+    mixer's levels."""
+
+    def __init__(self, paths, stats: torch.Tensor):
+        super().__init__((p, (stats[0, i], stats[1, i]))
+                         for i, p in enumerate(paths))
+        self.stats = stats
+
+
 class RenderProgram:
     """A render program for one graph topology on one device."""
 
@@ -108,6 +195,10 @@ class RenderProgram:
         # scheduled stop/kill frames per source path (NEVER = none)
         self.stop_frames: dict[str, int] = {p: NEVER for p in self.source_paths}
         self.kill_frames: dict[str, int] = {p: NEVER for p in self.source_paths}
+        # the packed-input layout of the last block (step_packed): a
+        # change of its arrays' names, shapes or dtypes makes a new one
+        self._pack_spec = None
+        self._pack_version = 0
 
     # ------------------------------------------------------------------
     # graph indexing
@@ -182,7 +273,12 @@ class RenderProgram:
                 groups.setdefault(key, []).append(path)
         self.file_batches: list[FileBatch] = []
         self._batch_rows: list[dict] = []
+        # source path -> (bank or pool index, lane)
+        self._bank_lane: dict[str, tuple[int, int]] = {}
+        self._pool_lane: dict[str, tuple[int, int]] = {}
         for paths in groups.values():
+            self._bank_lane.update((p, (len(self.file_batches), i))
+                                   for i, p in enumerate(paths))
             self.file_batches.append(
                 FileBatch([self.nodes[p] for p in paths], paths, self.ctx))
             self._batch_rows.append(
@@ -190,6 +286,8 @@ class RenderProgram:
         self.pools: list[LeafBatch] = []
         self._pool_rows: list[dict] = []
         for paths in pools.values():
+            self._pool_lane.update((p, (len(self.pools), i))
+                                   for i, p in enumerate(paths))
             pool = LeafBatch([self.nodes[p] for p in paths], paths, self.ctx)
             self.pools.append(pool)
             self._pool_rows.append(
@@ -203,9 +301,12 @@ class RenderProgram:
         mixer with effects is a chain of one lane.
 
         ``self.chains[cid]`` holds the lane mixers, their paths and effect
-        lists; ``self._chain_of`` maps a mixer path to its chain."""
+        lists, and under auto-bypass each (stage, lane)'s silence limit;
+        ``self._chain_of`` maps a mixer path to its chain and
+        ``self._eff_loc`` an effect path to its (chain, stage, lane)."""
         self.chains: list[dict] = []
         self._chain_of: dict[str, int] = {}
+        self._eff_loc: dict[str, tuple[int, int, int]] = {}
 
         def add_chain(mixers, paths):
             cid = len(self.chains)
@@ -217,11 +318,24 @@ class RenderProgram:
                 lane_paths = [eps[i] for eps in epaths]
                 params.append({p.id: self._rows(lane_paths, p.id)
                                for p in e0.PARAMS})
-            self.chains.append({"mixers": list(mixers), "mixer_paths": paths,
-                                "effects": effects, "effect_paths": epaths,
-                                "params": params})
+            chain = {"mixers": list(mixers), "mixer_paths": paths,
+                     "effects": effects, "effect_paths": epaths,
+                     "params": params}
+            if self.config.auto_bypass:
+                # worst-case tail over the parameter ranges plus 2 s: runtime
+                # automation can lengthen a tail past the construction-time
+                # estimate, and a bypass must never freeze a ringing tail
+                sr = self.ctx.sample_rate
+                chain["limits"] = torch.tensor(
+                    [[effs[i].max_tail_frames(self.ctx) + 2 * sr
+                      for effs in effects] for i in range(len(effects[0]))],
+                    dtype=torch.int32, device=self.device)
+            self.chains.append(chain)
             for p in paths:
                 self._chain_of[p] = cid
+            for lane, eps in enumerate(epaths):
+                for i, ep in enumerate(eps):
+                    self._eff_loc[ep] = (cid, i, lane)
 
         def visit(m: _FrozenMixer, me: str):
             if m.effects and me not in self._chain_of:
@@ -309,6 +423,89 @@ class RenderProgram:
         frames = self.kill_frames if kill else self.stop_frames
         frames[path] = min(frames[path], int(at_frame))
 
+    def adopt(self, old: "RenderProgram", old_state):
+        """Carry control and running state across a topology rebuild (live
+        add / remove of sources, effects and mixers: the reference keeps
+        unrelated sources playing through such edits, src/player.rs
+        add_source / add_effect).  Everything present in both programs
+        carries by path: timelines, stop / kill frames, file-bank lane
+        positions, pool voice state, each chain lane's effect state and
+        smoother rows.  A silence age carries where the effect's input is
+        the same: its mixer's chain up to it holds the same effects;
+        every other age resets to 0 (recently active), so a rebuild never
+        freezes a still-ringing tail.  Returns the new state."""
+        for key, tl in old.timelines.items():
+            if key in self.timelines:
+                self.timelines[key] = tl
+        for path, node in self.nodes.items():
+            node._timelines = {p.id: self.timelines[(path, p.id)]
+                               for p in node.PARAMS}
+        for path in self.source_paths:
+            if path in old.stop_frames:
+                self.stop_frames[path] = old.stop_frames[path]
+                self.kill_frames[path] = old.kill_frames[path]
+        new = self.init_state()
+
+        def carry(new_groups, old_groups, paths_of, old_loc):
+            """Each group's lanes from wherever their path lived in the old
+            program (``old_loc``: path -> (old group, old lane))."""
+            out = []
+            for g, st in enumerate(new_groups):
+                by_old: dict = {}
+                for lane, path in enumerate(paths_of(g)):
+                    loc = old_loc.get(path)
+                    if loc is not None:
+                        by_old.setdefault(loc[0], []).append((lane, loc[1]))
+                for og, pairs in by_old.items():
+                    st = _carry_rows(st, old_groups[og], pairs)
+                out.append(st)
+            return out
+
+        new["file_batches"] = carry(
+            new["file_batches"], old_state["file_batches"],
+            lambda g: self.file_batches[g].paths, old._bank_lane)
+        new["pools"] = carry(new["pools"], old_state["pools"],
+                             lambda g: self.pools[g].paths, old._pool_lane)
+        for cid, c in enumerate(self.chains):
+            for i in range(len(c["effects"][0])):
+                old_loc = {}
+                for eps in c["effect_paths"]:
+                    loc = old._eff_loc.get(eps[i])
+                    if loc is not None:
+                        old_loc[eps[i]] = (loc[:2], loc[2])
+                new["chains"][cid][i] = carry(
+                    [new["chains"][cid][i]],
+                    {k: old_state["chains"][k[0]][k[1]]
+                     for k, _ in old_loc.values()},
+                    lambda g: [eps[i] for eps in c["effect_paths"]],
+                    old_loc)[0]
+        sm = {}
+        for key, st in new["smoothers"].items():
+            pairs = [(i, old._param_row[pp][1])
+                     for i, pp in enumerate(self._param_groups[key])
+                     if pp in old._param_row]
+            if key in old_state["smoothers"] and pairs:
+                st = _carry_rows(st, old_state["smoothers"][key], pairs)
+            sm[key] = st
+        new["smoothers"] = sm
+        if "bypass" in new:
+            old_ages = old_state.get("bypass")
+            ages = []
+            for cid, c in enumerate(self.chains):
+                a = torch.zeros_like(new["bypass"][cid])
+                for lane, eps in enumerate(c["effect_paths"]):
+                    for i, ep in enumerate(eps):
+                        loc = old._eff_loc.get(ep)
+                        if old_ages is None or loc is None:
+                            continue
+                        ocid, oi, olane = loc
+                        if old.chains[ocid]["effect_paths"][olane][:oi + 1] \
+                                == eps[:i + 1]:
+                            a[i, lane] = old_ages[ocid][oi, olane]
+                ages.append(a)
+            new["bypass"] = ages
+        return new
+
     def natural_duration_frames(self) -> Optional[int]:
         """Longest finite source duration + effect tails, or None if endless."""
         total = 0
@@ -365,10 +562,17 @@ class RenderProgram:
             [stack_states([effs[i].init_state(self.ctx) for effs in c["effects"]])
              for i in range(len(c["effects"][0]))]
             for c in self.chains]
-        return {"smoothers": smoothers,
-                "file_batches": [b.init_state() for b in self.file_batches],
-                "pools": [p.init_state() for p in self.pools],
-                "chains": chains}
+        st = {"smoothers": smoothers,
+              "file_batches": [b.init_state() for b in self.file_batches],
+              "pools": [p.init_state() for p in self.pools],
+              "chains": chains}
+        if self.config.auto_bypass:
+            # one silence age per (stage, lane) of each chain, [E, G]:
+            # every effect starts bypassed until audio arrives
+            st["bypass"] = [torch.full(c["limits"].shape, AGE_MAX,
+                                       dtype=torch.int32, device=dev)
+                            for c in self.chains]
+        return st
 
     def block_inputs(self, block_index: int):
         """Host-side lowering of one block's events (numpy)."""
@@ -390,19 +594,94 @@ class RenderProgram:
                 "extra": extra}
 
     # ------------------------------------------------------------------
+    # the arrays a block copies to the device
+    # ------------------------------------------------------------------
+
+    def _host_arrays(self, inputs):
+        """The host arrays of a block's inputs that the step reads on the
+        device, by name, and the host values derived from them that the
+        step reads on the host (segment counts, a pool's layout and step
+        bound).  Values that pick code paths (the block's start frame, an
+        effect's flags) stay in ``inputs``."""
+        n = self.ctx.block_frames
+        arrays, host = {}, {}
+        for gi, (key, (t, v, r)) in enumerate(
+                (k, inputs["params"][k]) for k in self._param_groups):
+            arrays[f"p{gi}.t"] = np.asarray(t, np.int64)
+            arrays[f"p{gi}.v"] = np.asarray(v, np.float32)
+            if key[0] not in ("exponential", "linear", "spring"):
+                arrays[f"p{gi}.r"] = np.asarray(r)
+            host[f"p{gi}.live"] = smoothing.live_segments(t, n)
+        extra = inputs.get("extra", {})
+        for bi, batch in enumerate(self.file_batches):
+            def lanes(fn, dtype):
+                return np.array([fn(p) for p in batch.paths], dtype)
+
+            arrays[f"b{bi}.stop"] = lanes(lambda p: inputs["stops"][p][0],
+                                          np.int64)
+            arrays[f"b{bi}.kill"] = lanes(lambda p: inputs["stops"][p][1],
+                                          np.int64)
+            arrays[f"b{bi}.seek_flag"] = lanes(
+                lambda p: extra.get(p, {}).get("_seek_flag", 0.0), np.float32)
+            arrays[f"b{bi}.seek_pos"] = lanes(
+                lambda p: extra.get(p, {}).get("_seek_pos", 0.0), np.float32)
+        for pi, pool in enumerate(self.pools):
+            flat, layout, smax, live = pool.stack([extra[p] for p in pool.paths])
+            arrays[f"q{pi}"] = flat
+            host[f"q{pi}"] = (layout, smax, live)
+        return arrays, host
+
+    def pack_inputs(self, inputs) -> PackedInputs:
+        """A block's inputs for :meth:`step_packed`: every host array the
+        step reads on the device goes into one buffer (pinned on a CUDA
+        program), each at an 8-byte-aligned offset, which goes to the
+        device in one asynchronous copy; the step reads views of it.
+
+        The layout (names, shapes, dtypes, offsets) is kept while a block's
+        arrays keep it; a change (the first note event lowering new arrays,
+        a retuned pool) makes a new layout and bumps ``_pack_version``.
+        The buffer is fresh per block: PyTorch's pinned-memory cache hands
+        a buffer out again only once the copy that read it has completed."""
+        arrays, host = self._host_arrays(inputs)
+        sig = tuple((k, a.shape, a.dtype.str) for k, a in arrays.items())
+        if self._pack_spec is None or self._pack_spec[0] != sig:
+            offsets, off = [], 0
+            for _, a in arrays.items():
+                offsets.append(off)
+                off += -(-a.nbytes // 8) * 8
+            self._pack_spec = (sig, tuple(offsets), max(off, 8))
+            self._pack_version += 1
+        _, offsets, total = self._pack_spec
+        pinned = self.device.type == "cuda"
+        buf = torch.empty(total, dtype=torch.uint8, pin_memory=pinned)
+        view = buf.numpy()
+        for off, a in zip(offsets, arrays.values()):
+            view[off:off + a.nbytes] = np.ascontiguousarray(a).view(
+                np.uint8).reshape(-1)
+        dbuf = buf.to(self.device, non_blocking=True) if pinned else buf
+        device = {}
+        for off, (k, a) in zip(offsets, arrays.items()):
+            t = dbuf[off:off + a.nbytes].view(_TORCH[a.dtype.str])
+            device[k] = t.view(a.shape)
+        return PackedInputs(inputs, host, device)
+
+    def packed_block_inputs(self, block_index: int) -> PackedInputs:
+        return self.pack_inputs(self.block_inputs(block_index))
+
+    # ------------------------------------------------------------------
     # the block step
     # ------------------------------------------------------------------
 
-    def _smooth_all_params(self, smoother_state, inputs_params):
+    def _smooth_all_params(self, smoother_state, host, dev):
         """Run every parameter group's smoother as one batched computation;
         returns (new_smoother_states, values[key] -> [P, n])."""
         n = self.ctx.block_frames
         sr = self.ctx.sample_rate
         new_states, group_values = {}, {}
-        for key in self._param_groups:
+        for gi, key in enumerate(self._param_groups):
             kind, arg = key
-            t, v, r = inputs_params[key]
-            ev = smoothing.segment_events(t, v, n, self.device)
+            ev = smoothing.SegmentEvents(dev[f"p{gi}.t"], dev[f"p{gi}.v"],
+                                         host[f"p{gi}.live"])
             st = smoother_state[key]
             if kind == "exponential":
                 new, vals = smoothing.exp_smoother_block(
@@ -413,21 +692,35 @@ class RenderProgram:
                 new, vals = smoothing.spring_smoother_block(
                     st, ev, n, smoothing.spring_omega(arg), sr)
             else:
-                ramps = torch.as_tensor(r, device=self.device)
-                new, vals = smoothing.step_targets(st, ev, ramps, n)
+                new, vals = smoothing.step_targets(st, ev, dev[f"p{gi}.r"], n)
             new_states[key] = new
             group_values[key] = vals
         return new_states, group_values
 
     def step(self, state, inputs):
         """Render one block: (state, inputs) -> (state, audio[ch, n]) on the
-        program's device."""
-        dev = self.device
+        program's device; with ``meter_mixers`` the output is (audio,
+        :class:`MixerLevels`).  Each host array is copied to the device on
+        its own; :meth:`step_packed` copies them in one go and gives the
+        same numbers."""
+        arrays, host = self._host_arrays(inputs)
+        dev = {k: torch.as_tensor(a, device=self.device)
+               for k, a in arrays.items()}
+        return self._step(state, inputs, host, dev)
+
+    def step_packed(self, state, packed: PackedInputs):
+        """:meth:`step` over :meth:`pack_inputs`' packed inputs: the live
+        path's step, with no copy from the host and no wait for the stream
+        inside it."""
+        return self._step(state, packed.inputs, packed.host, packed.device)
+
+    def _step(self, state, inputs, host, dev):
         ctx = self.ctx
+        n = ctx.block_frames
         frame0 = int(inputs["frame0"])
         extra = inputs.get("extra", {})
         new_smoothers, values = self._smooth_all_params(
-            state["smoothers"], inputs["params"])
+            state["smoothers"], host, dev)
 
         def rows(sel):
             key, idx = sel
@@ -438,61 +731,78 @@ class RenderProgram:
         new_batches = []
         for bi, batch in enumerate(self.file_batches):
             sel = self._batch_rows[bi]
-
-            def lane_values(fn, dtype):
-                return torch.tensor([fn(p) for p in batch.paths], dtype=dtype,
-                                    device=dev)
-
             nb_state, out = batch.render(
                 state["file_batches"][bi], frame0, rows(sel["VOLU"]),
-                rows(sel["PANN"]), rows(sel["SPED"]),
-                lane_values(lambda p: inputs["stops"][p][0], torch.int64),
-                lane_values(lambda p: inputs["stops"][p][1], torch.int64),
-                lane_values(lambda p: extra.get(p, {}).get("_seek_flag", 0.0),
-                            torch.float32),
-                lane_values(lambda p: extra.get(p, {}).get("_seek_pos", 0.0),
-                            torch.float32),
-            )
+                rows(sel["PANN"]), rows(sel["SPED"]), dev[f"b{bi}.stop"],
+                dev[f"b{bi}.kill"], dev[f"b{bi}.seek_flag"],
+                dev[f"b{bi}.seek_pos"])
             new_batches.append(nb_state)
             for i, p in enumerate(batch.paths):
                 source_out[p] = out[i]
         new_pools = []
         for pi, pool in enumerate(self.pools):
             params = {pid: rows(sel) for pid, sel in self._pool_rows[pi].items()}
-            pool_state, out = pool.render(state["pools"][pi], params,
-                                          [extra[p] for p in pool.paths],
-                                          frame0)
+            layout, smax, live = host[f"q{pi}"]
+            pool_state, out = pool.render(
+                state["pools"][pi], params, pool.voices(dev[f"q{pi}"], layout),
+                smax, live, frame0)
             new_pools.append(pool_state)
             for i, p in enumerate(pool.paths):
                 source_out[p] = out[i]
 
         new_chains: list = [None] * len(self.chains)
+        new_ages: list = [None] * len(self.chains)
+        metered: list = []  # (mixer path, its post-effects signal)
 
         def run_chain(cid, x):
             """Apply chain ``cid`` to x [G, ch, n]: effect i of every lane
-            runs as one batched call."""
+            runs as one batched call.
+
+            Under auto-bypass each (stage, lane) keeps a silence age: a stage
+            whose input is silent and has been for longer than its limit
+            passes its input through and keeps its state.  The stage still
+            runs and selects per lane (``torch.where``), so no branch reads a
+            device value on the host; for one lane this is the JAX package's
+            per-effect ``lax.cond``, for several its ``run_chain_frozen``."""
             c = self.chains[cid]
+            bypass = self.config.auto_bypass
+            if bypass:
+                age0, limits, ages = state["bypass"][cid], c["limits"], []
             sts = []
             for i, e0 in enumerate(c["effects"][0]):
                 pvals = {pid: rows(sel) for pid, sel in c["params"][i].items()}
                 dicts = [extra.get(eps[i], {}) for eps in c["effect_paths"]]
                 for k in sorted(set().union(*dicts)):
                     pvals[k] = np.stack([d.get(k, 0) for d in dicts])
-                st, x = e0.process(state["chains"][cid][i], x, pvals, ctx)
+                st0 = state["chains"][cid][i]
+                if bypass:
+                    silent = torch.amax(torch.abs(x), dim=(1, 2)) <= SILENCE
+                    skip = silent & (age0[i] >= limits[i])
+                    st, y = e0.process(st0, x, pvals, ctx)
+                    x = torch.where(skip[:, None, None], x, y)
+                    st = tree_map(lambda a, b: torch.where(
+                        skip.view((-1,) + (1,) * (a.dim() - 1)), a, b), st0, st)
+                    ages.append(torch.where(silent, age0[i] + n, 0))
+                else:
+                    st, x = e0.process(st0, x, pvals, ctx)
                 sts.append(st)
             new_chains[cid] = sts
+            if bypass:
+                new_ages[cid] = torch.clamp(torch.stack(ages), max=AGE_MAX)
             return x
 
         def render_pre(m: _FrozenMixer, me: str):
             """Children and sources summed, BEFORE m's own effect chain."""
             acc = torch.zeros((ctx.channels, ctx.block_frames),
-                              dtype=self.config.dtype, device=dev)
+                              dtype=self.config.dtype, device=self.device)
             done = set()
             for child in m.children:
                 cpath = f"{me}/{child.name}"
                 cid = self._chain_of.get(cpath)
                 if cid is None:
-                    acc = acc + render_pre(child, cpath)
+                    y = render_pre(child, cpath)
+                    metered.append((cpath, y))
+                    acc = acc + y
                     continue
                 if cid in done:
                     continue
@@ -500,7 +810,9 @@ class RenderProgram:
                 c = self.chains[cid]
                 xs = torch.stack([render_pre(m2, p2) for m2, p2 in
                                   zip(c["mixers"], c["mixer_paths"])])
-                acc = acc + torch.sum(run_chain(cid, xs), dim=0)
+                ys = run_chain(cid, xs)
+                metered.extend(zip(c["mixer_paths"], ys))
+                acc = acc + torch.sum(ys, dim=0)
             for s in m.sources:
                 acc = acc + source_out[f"{me}/{s.name}"]
             return acc
@@ -509,9 +821,19 @@ class RenderProgram:
         audio = render_pre(self._frozen, me)
         if me in self._chain_of:
             audio = run_chain(self._chain_of[me], audio[None])[0]
+        metered.append((me, audio))
         new_state = {"smoothers": new_smoothers, "file_batches": new_batches,
                      "pools": new_pools, "chains": new_chains}
-        return new_state, audio
+        if self.config.auto_bypass:
+            new_state["bypass"] = new_ages
+        if not self.config.meter_mixers:
+            return new_state, audio
+        # per-mixer metering (reference: MeteredSource on every mixer,
+        # src/player.rs:444-459): every mixer's levels in one reduction
+        sig = torch.stack([y for _, y in metered])
+        stats = torch.stack([torch.amax(torch.abs(sig), dim=-1),
+                             torch.sqrt(torch.mean(torch.square(sig), dim=-1))])
+        return new_state, (audio, MixerLevels([p for p, _ in metered], stats))
 
     # ------------------------------------------------------------------
     # rendering
@@ -532,6 +854,10 @@ class RenderProgram:
             if duration_frames is None:
                 raise ValueError(
                     "graph has endless sources; pass an explicit duration")
+        if self.config.meter_mixers:
+            raise ValueError(
+                "offline render() does not support meter_mixers; use the "
+                "Player pump or a plain config")
         n = self.ctx.block_frames
         num_blocks = max((int(duration_frames) + n - 1) // n, 1)
         state = state if state is not None else self.init_state()

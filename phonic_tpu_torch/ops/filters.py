@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import consts
 from .scan import linear_recurrence, linear_recurrence_2
 
 LOWPASS = "lowpass"
@@ -77,10 +78,10 @@ def biquad_coefficients(filter_type: str, sample_rate, cutoff, q,
     float32 tensor; ``q`` and ``gain_db`` tensors or Python floats."""
     g = torch.tan(math.pi * cutoff / float(sample_rate))
     one = torch.ones_like(g)
-    q = torch.as_tensor(q, dtype=torch.float32, device=g.device)
+    q = consts.as_device(q, torch.float32, g.device)
     if filter_type in (BELL, LOWSHELF, HIGHSHELF):
-        a = torch.pow(10.0, torch.as_tensor(gain_db, dtype=torch.float32,
-                                            device=g.device) / 40.0)
+        a = torch.pow(10.0, consts.as_device(gain_db, torch.float32,
+                                             g.device) / 40.0)
     k = 1.0 / (q * a) if filter_type == BELL else 1.0 / q
     if filter_type == LOWSHELF:
         g = g / torch.sqrt(a)
@@ -149,8 +150,9 @@ def tpt_process(state: TptState, x: torch.Tensor, coefs: TptCoefficients,
     ``(new_state, y)``."""
     in_dtype = x.dtype
     xs = x.to(dtype)
-    a1, a2, a3, m0, m1, m2 = (torch.as_tensor(c, device=x.device).to(dtype)
-                              for c in coefs)
+    a1, a2, a3, m0, m1, m2 = (
+        (c if isinstance(c, torch.Tensor) else consts.const(c))
+        .to(device=x.device).to(dtype) for c in coefs)
     ic1_0 = state.ic1.to(dtype)
     ic2_0 = state.ic2.to(dtype)
     zeros = torch.zeros_like(xs)
@@ -201,6 +203,6 @@ def dc_process(state: DcState, x: torch.Tensor, r, dtype=torch.float32):
     in_dtype = x.dtype
     xs = x.to(dtype)
     diff = xs - _prev_seq(xs, state.x1.to(dtype))
-    a = torch.as_tensor(r, dtype=dtype, device=x.device).expand_as(xs)
+    a = consts.as_device(r, dtype, x.device).expand_as(xs)
     y = linear_recurrence(a, diff, state.y1.to(dtype))
     return DcState(y1=y[..., -1], x1=xs[..., -1]), y.to(in_dtype)

@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import consts
+
 # waveform ids are indices into this tuple
 WAVEFORM_NAMES = (
     "Sine", "Triangle", "Ramp Up", "Ramp Down", "Square", "Random", "Smooth Random",
@@ -114,7 +116,7 @@ def lfo_block(state: LfoState, phase_inc: torch.Tensor, n: int,
     smooth = random + t * (target - random)
     stacked = torch.stack([sine, triangle, ramp_up, ramp_down, square, random,
                            smooth], dim=1)  # [G, 7, n]
-    wf = torch.clamp(torch.as_tensor(waveform, device=phase.device)
-                     .to(torch.int64).expand(phase.shape[0]), 0, 6)
+    wf = torch.clamp(consts.as_device(waveform, torch.int64, phase.device)
+                     .expand(phase.shape[0]), 0, 6)
     out = torch.gather(stacked, 1, wf[:, None, None].expand(-1, 1, n))[:, 0]
     return new_state, out

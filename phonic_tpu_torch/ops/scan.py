@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from . import consts
 
 # kernel launch counts (one per wrapper call that launched its kernel)
 iir1_launches = 0
@@ -216,7 +217,7 @@ def linear_recurrence(a, b, y0, axis: int = -1) -> torch.Tensor:
     a, b = a.movedim(axis, -1), b.movedim(axis, -1)
     lead, t = b.shape[:-1], b.shape[-1]
     if b.is_cuda:
-        y0 = torch.as_tensor(y0, dtype=b.dtype, device=b.device)
+        y0 = consts.as_device(y0, b.dtype, b.device)
         y = iir1(_rows(a, lead, t), _rows(b, lead, t),
                  y0.expand(lead).reshape(-1).contiguous()).reshape(lead + (t,))
     else:
@@ -235,7 +236,7 @@ def linear_recurrence_2(a11, a12, a21, a22, b1, b2, s0_1, s0_2,
     lead, t = arrs[4].shape[:-1], arrs[4].shape[-1]
     if arrs[4].is_cuda:
         dev, dt = arrs[4].device, arrs[4].dtype
-        s0 = [torch.as_tensor(s, dtype=dt, device=dev).expand(lead)
+        s0 = [consts.as_device(s, dt, dev).expand(lead)
               .reshape(-1).contiguous() for s in (s0_1, s0_2)]
         s1, s2 = iir2(*(_rows(x, lead, t) for x in arrs), *s0)
         s1, s2 = s1.reshape(lead + (t,)), s2.reshape(lead + (t,))

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import SMOOTHER_EPSILON, SMOOTHER_REFERENCE_SR
+from . import consts
 
 
 class SegmentEvents(NamedTuple):
@@ -39,14 +40,19 @@ class SegmentEvents(NamedTuple):
     live: int
 
 
+def live_segments(times: np.ndarray, n: int) -> int:
+    """Segments that can start inside the block: 1 + the most valid events
+    of any row of the host-lowered ``[P, K]`` event times."""
+    return 1 + int((np.asarray(times) < n).sum(axis=1).max(initial=0))
+
+
 def segment_events(times: np.ndarray, values: np.ndarray, n: int,
                    device) -> SegmentEvents:
     """Host-lowered ``[P, K]`` event arrays -> :class:`SegmentEvents`."""
-    live = 1 + int((np.asarray(times) < n).sum(axis=1).max(initial=0))
     return SegmentEvents(
         torch.as_tensor(np.asarray(times, np.int64), device=device),
         torch.as_tensor(np.asarray(values, np.float32), device=device),
-        live)
+        live_segments(times, n))
 
 
 def exp_alpha(inertia: float, sample_rate: int) -> float:
@@ -126,7 +132,7 @@ def exp_smoother_block(state: ExpSmootherState, events: SegmentEvents,
     the target exactly once ramping has terminated."""
     n = block_frames
     dev = state.current.device
-    alpha_t = torch.tensor(alpha, dtype=torch.float32, device=dev)
+    alpha_t = consts.const(alpha, torch.float32, dev)
     log1ma = torch.log1p(-alpha_t)
     seg_start, seg_target, seg_len, is_event, seg_end = _segments(
         state.target, events, n)
@@ -257,8 +263,8 @@ def spring_smoother_block(state: SpringSmootherState, events: SegmentEvents,
     l1 = (tr + disc) / 2.0
     l2 = (tr - disc) / 2.0
     inv_dl = 1.0 / (l1 - l2) if disc > 0 else 0.0
-    l1_t = torch.tensor(l1, dtype=torch.float32, device=dev)
-    l2_t = torch.tensor(l2, dtype=torch.float32, device=dev)
+    l1_t = consts.const(l1, torch.float32, dev)
+    l2_t = consts.const(l2, torch.float32, dev)
 
     def mat_pow_apply(p, v0, e0):
         """(v_p, e_p) = M^p (v0, e0) via

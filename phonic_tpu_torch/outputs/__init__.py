@@ -1,4 +1,5 @@
 from .base import OutputDevice
+from .null import NullOutput
 from .wav_out import WavOutput
 
-__all__ = ["OutputDevice", "WavOutput"]
+__all__ = ["OutputDevice", "NullOutput", "WavOutput"]

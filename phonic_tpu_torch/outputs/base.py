@@ -6,8 +6,8 @@ play / stop / close.
 
 Devices consume rendered blocks: the device *receives* planar blocks
 instead of pulling inside an OS callback.  The realtime and web devices,
-and ``default_output_device`` which picks among them, come with the
-player.
+and ``default_output_device`` which picks among them, are not ported yet
+(``outputs/rt.py``, ``outputs/web.py``); the null and WAV devices are.
 """
 
 from __future__ import annotations

@@ -58,6 +58,13 @@ class FilePlaybackOptions:
     fade_in_secs: float = 0.0
     fade_out_secs: float = 0.05  # de-click stop fade (reference default 50 ms)
     resampling_quality: str = "default"  # "default" (Hermite) | "high" (sinc)
+    # seconds between the Player's Position status events (None = positions
+    # never emitted, stop events still fire); reference default 1 s
+    # (src/source/file.rs:92-110)
+    playback_pos_emit_rate: Optional[float] = 1.0
+    # enable the per-source CPU-load probe readable via
+    # PlaybackHandle.cpu_load() (reference: MeasuredSource, measured.rs)
+    measure_cpu_load: bool = False
 
     def validate(self):
         """reference: FilePlaybackOptions::validate,
