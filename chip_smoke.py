@@ -1,8 +1,8 @@
 """GPU smoke test of the PyTorch port: build the CUDA kernels, check each
 against its plain PyTorch version on the card, then render the headline
-mixer graph, the mastering chain, the 64-voice sampler, the play_file path,
-the granular sampler and the live Player at full width on the card and
-check them.
+mixer graph, the mastering chain, the 64-voice sampler, the play_file path
+(preloaded and streamed), the granular sampler, the live Player and the
+synth path at full width on the card and check them.
 
     python3 chip_smoke.py
 
@@ -26,7 +26,9 @@ phase fails.  Phases:
    and backward with their wrap jumps, N=131072), and lanes whose source
    index is out of range with NaN positions (both read silence); the
    recurrences run at one and two segments and one off, odd lengths (rows
-   that start unaligned), one row and forty.  The follower and
+   that start unaligned), one row and forty, and iir2 at the synth path's
+   shapes (R=64 for sub3's SVF over 64 voices, R=2 for the bank's filter,
+   T=131072).  The follower and
    the gate must agree with their plain versions exactly; at 131072
    samples their plain versions (a Python loop over time) run on a CPU
    copy of the card's inputs.  The gate also runs edge cases: lengths at
@@ -58,7 +60,15 @@ phase fails.  Phases:
    the WAV read back must hold exactly the natural length (computed here
    from the source's span, rate and speed), be finite and not silent, and
    its first two blocks must match the same program on the CPU to -90 dB;
-   the sinc read's time at that shape is logged; (c) the granular sampler
+   the sinc read's time at that shape is logged; then the same WAV played
+   from disk as a ``StreamedFileSource`` at the default quality, 8 blocks
+   of 131072 frames (rate and the host's window assembly per block
+   logged), blocks 0-3 against the streamed CPU render to -90 dB, against
+   the preloaded ``FileSource`` on the card to -90 dB at a step of exactly
+   one source frame per output frame (both reads exact), and at speed 1
+   within the bound of their float32 read positions (the preloaded read's
+   absolute positions lose precision as the file position grows);
+   (c) the granular sampler
    (bench.py's config 4: 10 voices, each keeping a pool of 100 one-second
    grains full at 100 Hz density, over a 96000-frame tone, 131072-frame
    blocks at 48 kHz stereo), checked the same way; every grain of a block
@@ -74,16 +84,25 @@ phase fails.  Phases:
    4-5 compared the same way; then ``Player.run(8 * n)`` timed as bench.py
    times it (at least 10 blocks and 1 s, host clock) at pipeline depth 1
    and 3, with the number of retirement rebuilds it ran; and one file
-   source's ``cpu_load()`` (timed alone with CUDA events);
+   source's ``cpu_load()`` (timed alone with CUDA events); (e)
+   synth_64v (``synth64.synth_program``: a 64-voice ``SynthGenerator`` of
+   sub3 with bench.py's config 2 notes, a bank of 16 dx7
+   ``SynthSource``s in a sub-mixer with a lowpass ``FilterEffect``, a
+   ``PanningEffect`` on the master; 131072-frame blocks) rendered as
+   phases 3-5 render theirs, iir2 exactly twice per block; every
+   unautomated note's frequency multiplier exactly 1 on the card; then the
+   same graph in a Player (``play_generator``, ``play_synth``) at
+   8192-frame blocks, blocks 0-3 against the CPU Player to -90 dB;
 7. under ``torch.profiler``, after every timed render (a profiler session
    slows the launches that follow it in the process): one more block of
    each path, which gives the device operations, the host-to-device
    copies, the ``cudaStreamSynchronize`` calls and the device time per
    block and the device's busy share (device time over that block's wall
-   time, both under the profiler); the Player's block is one
+   time, both under the profiler); each Player's block is one
    ``render_block`` (packed inputs, step, copies back), and the
    synchronising calls PyTorch reports in it (its sync debug mode) are
-   logged with where they come from;
+   logged with where they come from: the synth Player fails the run on a
+   ``cudaStreamSynchronize`` or a reported call;
    each kernel's kernel-only device time (the profiler's events of its own
    launches, and their number per call) and its share of its bound, at
    each path's shape and at the byte-bound shapes off the paths (iir2 and
@@ -92,7 +111,8 @@ phase fails.  Phases:
 
 The line before the last is a JSON object with each kernel's numbers from
 this run: at top level those of the mastering chain, which runs all five
-kernels, under ``by_path`` those of each path and under ``off_path`` those
+kernels, under ``by_path`` those of each path (a path's second shape as
+``path/what``, sharing the path's launches) and under ``off_path`` those
 of the shapes timed off the paths.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -130,8 +150,14 @@ from phonic_tpu_torch.player import Player, PlayerConfig
 from phonic_tpu_torch.player_rt import (
     BLOCK_FRAMES as PLAYER_BLOCK, player_rt_player,
 )
+from phonic_tpu_torch.generators.synth import note_speed
+from phonic_tpu_torch.graph.mixer import Mixer
+from phonic_tpu_torch.graph.engine import RenderProgram
+from phonic_tpu_torch.config import EngineConfig
 from phonic_tpu_torch.sampler64 import sampler_program
-from phonic_tpu_torch.sources.file import FilePlaybackOptions
+from phonic_tpu_torch.sources.file import FilePlaybackOptions, FileSource
+from phonic_tpu_torch.sources.streamed import StreamedFileSource
+from phonic_tpu_torch.synth64 import synth_player, synth_program
 
 BLOCK = 131072
 SR = 48000
@@ -397,7 +423,8 @@ def check_kernels(dev):
     # paths' shapes: one segment (4096 samples) and one off, odd lengths
     # (rows that start unaligned), one row and forty
     for r, t, path in ((8, BLOCK, "headline"), (2, 8192, "mastering"),
-                       (8, PLAYER_BLOCK, "player"), (2, BLOCK, None),
+                       (8, PLAYER_BLOCK, "player"), (64, BLOCK, "synth_64v"),
+                       (2, BLOCK, "synth_64v/filter"),
                        (1, 4095, None), (1, 4096, None),
                        (1, 4097, None), (2, 4097, None), (8, 4097, None),
                        (3, 12289, None), (40, BLOCK, None), (40, 4097, None)):
@@ -654,13 +681,13 @@ def read_counters():
 
 
 def render_path(name, make_program, dev, kernels_used, blocks=4,
-                once_per_block=()):
+                once_per_block=(), per_block=None):
     """Render ``blocks`` blocks of a program on the card after one warm-up
     block, with the launch counters set to 0 just before; check that each
     kernel of the path launched at least once per block (those of
-    ``once_per_block`` exactly once), the audio, and blocks 0-1 against the
-    same program on the CPU.  Returns the launches of this run and the
-    program."""
+    ``once_per_block`` exactly once, those of ``per_block`` exactly that
+    many times), the audio, and blocks 0-1 against the same program on the
+    CPU.  Returns the launches of this run and the program."""
     prog = make_program(dev)
     n = prog.ctx.block_frames
     prog.render(n)  # warm-up: allocator and library start-up
@@ -671,10 +698,12 @@ def render_path(name, make_program, dev, kernels_used, blocks=4,
     if idle:
         raise RuntimeError(f"{name}: kernels of the path launched fewer "
                            f"times than the {blocks} blocks: {idle}")
-    extra = [k for k in once_per_block if launches[k] != blocks]
+    want = {k: 1 for k in once_per_block} | dict(per_block or {})
+    extra = [k for k, c in want.items() if launches[k] != c * blocks]
     if extra:
-        raise RuntimeError(f"{name}: kernels not launched exactly once per "
-                           f"block: {extra}")
+        raise RuntimeError(f"{name}: kernels not launched exactly "
+                           f"{[want[k] for k in extra]} times per block: "
+                           f"{extra}")
     check_audio(name, audio, (2, blocks * n))
     against_cpu(name, audio, make_program("cpu"))
     return launches, prog
@@ -776,7 +805,117 @@ def decoded_file(dev, tmp):
     check_audio("render_file", back, (2, want))
     against_cpu("decoded file", back, file_program(buf, options, PLAY_BLOCK,
                                                    "cpu"))
+    return prog, src, buf
+
+
+def lone_program(source, dev):
+    """One source on the master at 131072-frame blocks, 48 kHz stereo."""
+    main = Mixer("main")
+    main.add_source(source)
+    return RenderProgram(main, EngineConfig(sample_rate=SR, block_frames=BLOCK),
+                         device=dev)
+
+
+def blocks_against(name, audio, ref, blocks, bounds):
+    """Blocks 0..blocks-1 of ``audio`` against ``ref``; block b must stay
+    within ``bounds[b]`` x the block's peak of ``ref``."""
+    for b in range(blocks):
+        sl = slice(b * BLOCK, (b + 1) * BLOCK)
+        err = float(np.abs(audio[:, sl] - ref[:, sl]).max())
+        rpeak = float(np.abs(ref[:, sl]).max())
+        log(f"  block {b}: max_abs_err {err:.3e} vs {name}, peak {rpeak:.4f}, "
+            f"{20 * np.log10(max(err, 1e-30) / rpeak):.1f} dB (bound "
+            f"{20 * np.log10(bounds[b]):.1f} dB)")
+        if not err <= bounds[b] * rpeak:
+            raise RuntimeError(f"block {b} disagrees with {name}")
+
+
+def ulp32(x):
+    return float(np.spacing(np.float32(x)))
+
+
+def streamed_file(dev, path, buf):
+    """Phase 6b, streamed: the decoded file's WAV played from disk as a
+    ``StreamedFileSource`` at the default quality, 8 blocks of 131072
+    frames, timed; the host's window assembly timed alone.  Blocks 0-3
+    against the streamed render on the CPU and against the preloaded
+    ``FileSource`` on the card.  Returns the streamed program."""
+    options = FilePlaybackOptions(repeat=0)
+    prog = lone_program(StreamedFileSource(path, options), dev)
+    prog.render(BLOCK)  # warm-up
+    node = next(iter(prog.nodes.values()))
+    t0 = time.perf_counter()
+    for b in range(8):
+        node.lower_block_inputs(b * BLOCK, BLOCK)
+    assemble_ms = (time.perf_counter() - t0) / 8 * 1e3
+    w = node._window_frames_cached
+    log(f"  window assembly on the host: {assemble_ms:.2f} ms per block "
+        f"({w} frames x {FILE_CH} channels, {w * FILE_CH * 4 / 1e6:.2f} MB)")
+    audio = timed_render(prog, 8)
+    check_audio("streamed", audio, (2, 8 * BLOCK))
+    t0 = time.perf_counter()
+    ref = lone_program(StreamedFileSource(path, options), "cpu").render(
+        4 * BLOCK)
+    log(f"  CPU reference render of 4 blocks: {time.perf_counter() - t0:.1f} s")
+    blocks_against("the streamed CPU render", audio, ref, 4, [DB90] * 4)
+    # against the preloaded source at a step of exactly one source frame
+    # per output frame, where both reads are exact: any difference is the
+    # window assembly's
+    unit = FilePlaybackOptions(repeat=0, speed=SR / FILE_SR)
+    step = np.float32(unit.speed) * np.float32(FILE_SR / SR)
+    if step != 1.0:
+        raise RuntimeError(f"unit step is {step!r}")
+    got = lone_program(StreamedFileSource(path, unit), dev).render(4 * BLOCK)
+    want = lone_program(FileSource(buf, unit), dev).render(4 * BLOCK)
+    log("  streamed against preloaded at a step of exactly 1:")
+    blocks_against("the preloaded read", got, want, 4, [DB90] * 4)
+    # at the natural speed both read at float32 positions: the preloaded
+    # source's absolute ones (its ulp grows with the position in the file)
+    # and the streamed source's window-relative ones; bound: their rounding
+    # (a half ulp each, and the in-block ramp's) x the file's steepest
+    # step x 2 (the Hermite curve's overshoot)
+    want = lone_program(FileSource(buf, options), dev).render(4 * BLOCK)
+    ratio = FILE_SR / SR
+    data = np.asarray(buf.data)
+    bounds = []
+    for b in range(4):
+        end = (b + 1) * BLOCK * ratio
+        rnd = 0.5 * ulp32(end) + 2 * ulp32(BLOCK * ratio + 1)
+        seg = data[:, int(b * BLOCK * ratio):int(end) + 4]
+        slope = float(np.abs(np.diff(seg, axis=-1)).max())
+        peak = float(np.abs(want[:, b * BLOCK:(b + 1) * BLOCK]).max())
+        bounds.append(2 * rnd * slope / peak)
+    log("  streamed against preloaded at speed 1 (float32 position bound):")
+    blocks_against("the preloaded read", audio, want, 4, bounds)
     return prog
+
+
+def synth_phase(dev):
+    """Phase 6e: synth_64v through ``RenderProgram.render`` (iir2 exactly
+    twice per block: sub3's SVF over 64 voices and the bank's filter),
+    ``freq_mult == 1`` on the card for every unautomated note, then the same
+    graph in a Player at 8192-frame blocks, blocks 0-3 against the CPU
+    Player.  Returns the main path's launches, the program and the
+    Player."""
+    launches, prog = render_path(
+        "synth_64v", lambda d: synth_program(block_frames=BLOCK, device=d),
+        dev, ("iir2",), per_block={"iir2": 2})
+    notes = torch.arange(128, dtype=torch.float32, device=dev)
+    spd = torch.as_tensor(np.float32([2.0 ** ((k - 60) / 12.0)
+                                      for k in range(128)]), device=dev)
+    exact = int((spd / note_speed(notes) == 1.0).sum())
+    log(f"  freq_mult == 1 exactly for {exact} of 128 unautomated notes")
+    if exact != 128:
+        raise RuntimeError("synth: freq_mult differs from 1 without automation")
+    player, cpu = synth_player(device=dev), synth_player(device="cpu")
+    reset_counters()
+    got = player_blocks(player, 4)
+    plaunches = read_counters()
+    if plaunches["iir2"] != 2 * 4:
+        raise RuntimeError("synth player: iir2 not launched twice per block")
+    check_audio("synth player", got[0], (2, 4 * PLAYER_BLOCK))
+    against_cpu_player("synth player", got, player_blocks(cpu, 4))
+    return launches, prog, player
 
 
 def profile_block(run):
@@ -818,14 +957,17 @@ def device_busy(name, prog):
         lambda: prog.step(state, prog.block_inputs(1))[1].cpu()))
 
 
-def player_busy(player):
+def player_busy(player, name="player", strict=False):
     """One ``render_block`` of the Player (packed inputs, the step, the
     copies of its audio and levels back) under the profiler, logged as
     ``device_busy`` logs a block; then one more with PyTorch's sync debug
-    mode on, logging each synchronising call it reports and where."""
+    mode on, logging each synchronising call it reports and where.  With
+    ``strict``, a ``cudaStreamSynchronize`` in the profiled block or a
+    reported synchronising call fails the run."""
     player.render_block()
     torch.cuda.synchronize()
-    log_busy("player", *profile_block(player.render_block))
+    busy = profile_block(player.render_block)
+    log_busy(name, *busy)
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
@@ -836,9 +978,12 @@ def player_busy(player):
     where = collections.Counter(
         f"{Path(w.filename).name}:{w.lineno} {str(w.message)[:60]}"
         for w in caught)
-    log(f"  player: {len(caught)} synchronising calls reported in one "
+    log(f"  {name}: {len(caught)} synchronising calls reported in one "
         f"render_block{': ' if where else ''}"
         + "; ".join(f"{k} (x{v})" for k, v in where.items()))
+    if strict and (busy[2] or caught):
+        raise RuntimeError(f"{name}: render_block synchronises: {busy[2]} "
+                           f"cudaStreamSynchronize, {len(caught)} reported")
 
 
 def player_blocks(player, blocks):
@@ -854,12 +999,11 @@ def player_blocks(player, blocks):
     return np.concatenate(audio, axis=1), levels
 
 
-def against_cpu_player(name, got, ref, first=0):
+def against_cpu_player(name, got, ref, first=0, n=PLAYER_BLOCK):
     """Blocks ``first``, ... of a card Player against the same Player on the
     CPU: the audio and every mixer's levels to -90 dB of the block's
     peak."""
     (audio, levels), (want, want_levels) = got, ref
-    n = PLAYER_BLOCK
     for b, (lv, wlv) in enumerate(zip(levels, want_levels)):
         sl = slice(b * n, (b + 1) * n)
         err = float(np.abs(audio[:, sl] - want[:, sl]).max())
@@ -985,9 +1129,11 @@ def kernel_report(measured, off_path, paths):
     report = {"kernels": []}
     for name in COUNTERS:
         by_path = measured[name]
-        for path, launches in paths.items():
-            if path in by_path:
-                by_path[path]["launches"] = launches[name]
+        for key, nums in by_path.items():
+            # a path's second shape ("synth_64v/filter") shares its launches
+            launches = paths.get(key.split("/")[0])
+            if launches is not None:
+                nums["launches"] = launches[name]
         report["kernels"].append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
@@ -1043,8 +1189,11 @@ def main():
     paths["play_file"], progs["play_file"] = render_path(
         "play_file", lambda d: play_file_program(device=d), dev, ("ramp_read",))
     phase("6b: play_file, a decoded 180 s file at high quality, on the card")
-    with tempfile.TemporaryDirectory() as tmp:
-        progs["decoded_file"] = decoded_file(dev, tmp)
+    # the streamed program reads the file again in phase 7
+    tmp = tempfile.TemporaryDirectory()
+    progs["decoded_file"], src, buf = decoded_file(dev, tmp.name)
+    phase("6b: the same file streamed from disk, on the card")
+    progs["streamed"] = streamed_file(dev, src, buf)
     phase("6c: granular_1k, bench.py's config 4, on the card")
     # the grain mix is a float32 matrix product: TF32 would put the card
     # some 60 dB from the CPU
@@ -1056,15 +1205,19 @@ def main():
         dev, ("ramp_read",), once_per_block=("ramp_read",))
     phase("6d: player_rt_8192, bench.py's config_player_rt, on the card")
     paths["player"], player = player_phase(dev)
+    phase("6e: synth_64v, the synth path, on the card")
+    paths["synth_64v"], progs["synth_64v"], synth_pl = synth_phase(dev)
     # a profiler session leaves launches slower for the rest of the process,
     # so every profiled number comes after the timed renders
     phase("7: under the profiler")
     for name, prog in progs.items():
         device_busy(name, prog)
     player_busy(player)
+    player_busy(synth_pl, "synth player", strict=True)
     kernel_times(calls)
     log("  the headline graph again, after the profiler:")
     timed_render(progs["headline"], 4)
+    tmp.cleanup()
 
     log(f"done in {time.perf_counter() - START:.1f} s")
     log(json.dumps(kernel_report(measured, off_path, paths)))

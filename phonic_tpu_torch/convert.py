@@ -4,12 +4,12 @@
 fetched to numpy (``jax.device_get``), and returns the equivalent state of a
 port program built from the same graph description with the same node
 names.  Running state carries over: file positions, sampler voice
-positions, smoother states, filter states, delay windows, LFO and vibrato
-phases, reverb buffers.  Static data (source buffers, per-lane metadata,
-a high-quality bank's sinc table) is not taken from the JAX state — the
-JAX package holds it packed for its chip — but comes from the port
-program's own graph.  This package never imports JAX; the argument is plain
-numpy.
+positions, synth voice states, smoother states, filter states, delay
+windows, LFO and vibrato phases, reverb buffers.  Static data (source
+buffers, per-lane metadata, a high-quality bank's sinc table) is not taken
+from the JAX state — the JAX package holds it packed for its chip — but
+comes from the port program's own graph.  This package never imports JAX;
+the argument is plain numpy.
 """
 
 from __future__ import annotations
@@ -41,9 +41,12 @@ def _like(template, value, where: str):
 
 
 def _stack(trees):
-    """Stack numpy trees (nested dicts of arrays) along a new first axis."""
+    """Stack numpy trees (nested dicts and tuples of arrays) along a new
+    first axis."""
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], tuple):
+        return tuple(_stack(list(xs)) for xs in zip(*trees))
     return np.stack([np.asarray(t) for t in trees])
 
 
@@ -64,8 +67,11 @@ def state_from_jax(np_state, program):
     chains; where it does not, the node's own entry is used and gets the
     port's lane dimension of 1.  A granular sampler is never batched: its
     state, grain pools included, is its node's own, and it takes no
-    ``gen_batches`` entry.  Under auto-bypass the silence ages map onto
-    each chain's [stages, lanes] matrix."""
+    ``gen_batches`` entry; nor is a synth generator, whose voices' synth
+    state is its node's own with a leading V.  A bank of synth or streamed
+    sources keeps its lanes' statics (``_statics``) from the port program,
+    and a streamed bank has no running state.  Under auto-bypass the
+    silence ages map onto each chain's [stages, lanes] matrix."""
     template = program.init_state()
     smoothers = {key: _like(t, np_state["smoothers"][key], f"smoothers{key}")
                  for key, t in template["smoothers"].items()}
@@ -83,14 +89,19 @@ def state_from_jax(np_state, program):
 
     pools, gid = [], 0
     for pool, t in zip(program.pools, template["pools"]):
-        if (program.config.batch_sources and len(pool.paths) >= 2
-                and pool.proto.granular is None):
+        # a bank's statics are static config: the port's own
+        t = dict(t)
+        statics = t.pop("_statics", None)
+        if program.config.batch_sources and len(pool.paths) >= 2:
             lanes = np_state["gen_batches"][gid]
             gid += 1
         else:
             lanes = _stack([{k: _node(np_state, p)[k] for k in t}
                             for p in pool.paths])
-        pools.append(_like(t, lanes, f"pools/{pool.paths[0]}"))
+        st = _like(t, lanes, f"pools/{pool.paths[0]}")
+        if statics is not None:
+            st["_statics"] = statics
+        pools.append(st)
 
     chains, gid = [], 0
     for c, t in zip(program.chains, template["chains"]):

@@ -523,30 +523,10 @@ class Sampler(Generator):
         if self.granular is not None:
             out["_mod_amt"] = self.modulation.amounts.copy()
             out["_mod_bip"] = self.modulation.bipolar.copy()
-            # grain read speed = voice speed x 2^(sem/12), |sem| <= var <= 1
-            # semitone (granular.rs:700-717 variation draws); the mono
-            # buffer is pre-resampled to the engine rate (ratio 1).  The
-            # config's max_read_speed caps the bound either way.
-            b = min(rs.speed_bucket(
-                        self._max_step_bound(voices, include_ratio=False)
-                        * 2.0 ** (1.0 / 12.0)),
-                    rs.speed_bucket(self.granular.max_read_speed))
-        else:
-            b = rs.speed_bucket(self._max_step_bound(voices))
-        # step bound (monotone: a shrinking bound would change the clamp
-        # mid-note)
-        self._spd_bucket = max(b, getattr(self, "_spd_bucket", 0))
-        out["_smax"] = np.float32(2.0 ** self._spd_bucket)
-        # _loop_* inputs exist only when looping can engage (_can_loop);
-        # granular always lowers them
-        if self.granular is not None or self._can_loop():
-            rng = self._loop_at(block_start)
-            out["_loop_on"] = np.float32(0.0 if rng is None else 1.0)
-            out["_loop_start"] = np.float32(0.0 if rng is None else rng[0])
-            out["_loop_end"] = np.float32(
-                self.buffer.frames if rng is None else rng[1])
-        # live buffer length: samplers of one pool pad to its longest
-        out["_buf_frames"] = np.float32(self.buffer.frames)
+        # the read's inputs exist only where there is a buffer: a
+        # SynthGenerator borrows this lowering and has none
+        if getattr(self, "buffer", None) is not None:
+            self._lower_read_inputs(out, voices, block_start)
         for vi, segs in enumerate(voices):
             cont = None
             trig = None
@@ -581,6 +561,35 @@ class Sampler(Generator):
                     out["_trig_rel"][vi] = trig.release - trig.start
                 _lower_auto(trig, "ta", vi)
         return out
+
+    def _lower_read_inputs(self, out: dict, voices, block_start: int):
+        """The lowered inputs of the buffer read: the step bound ``_smax``,
+        the ``_loop_*`` inputs and the live buffer length."""
+        if self.granular is not None:
+            # grain read speed = voice speed x 2^(sem/12), |sem| <= var <= 1
+            # semitone (granular.rs:700-717 variation draws); the mono
+            # buffer is pre-resampled to the engine rate (ratio 1).  The
+            # config's max_read_speed caps the bound either way.
+            b = min(rs.speed_bucket(
+                        self._max_step_bound(voices, include_ratio=False)
+                        * 2.0 ** (1.0 / 12.0)),
+                    rs.speed_bucket(self.granular.max_read_speed))
+        else:
+            b = rs.speed_bucket(self._max_step_bound(voices))
+        # step bound (monotone: a shrinking bound would change the clamp
+        # mid-note)
+        self._spd_bucket = max(b, getattr(self, "_spd_bucket", 0))
+        out["_smax"] = np.float32(2.0 ** self._spd_bucket)
+        # _loop_* inputs exist only when looping can engage (_can_loop);
+        # granular always lowers them
+        if self.granular is not None or self._can_loop():
+            rng = self._loop_at(block_start)
+            out["_loop_on"] = np.float32(0.0 if rng is None else 1.0)
+            out["_loop_start"] = np.float32(0.0 if rng is None else rng[0])
+            out["_loop_end"] = np.float32(
+                self.buffer.frames if rng is None else rng[1])
+        # live buffer length: samplers of one pool pad to its longest
+        out["_buf_frames"] = np.float32(self.buffer.frames)
 
     # ------------------------------------------------------------------
     # device-side rendering

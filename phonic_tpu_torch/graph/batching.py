@@ -1,5 +1,5 @@
-"""File-source lane banks and generator pools (port of ``FileBatch`` and
-``LeafBatch`` from ``phonic_tpu/graph/batching.py``).
+"""File-source lane banks, generator pools and the other leaf banks (port
+of ``FileBatch`` and ``LeafBatch`` from ``phonic_tpu/graph/batching.py``).
 
 Homogeneous FileSources (same loop kind, endlessness, resampling quality,
 channel layout, fade flags and length bucket) render as one bank of lanes:
@@ -249,20 +249,29 @@ def stack_states(states: list):
 
 
 class LeafBatch:
-    """A generator pool (port of ``LeafBatch`` from
-    ``phonic_tpu/graph/batching.py``): samplers with equal
-    ``source_batch_key`` render as one call of the first sampler's
-    ``process`` over a leading sampler dimension G, their voices as lanes
-    [G, V].  A granular sampler (key None) is a pool of its own and renders
-    through ``process_granular``.
+    """A lane bank of leaf nodes (port of ``LeafBatch`` from
+    ``phonic_tpu/graph/batching.py``): nodes with equal
+    ``source_batch_key`` render as one call over a leading lane dimension
+    G.  A node without a key (a granular sampler, a synth generator, an
+    empty node) is a bank of its own.
 
-    Each sampler's read source (``read_table``: its buffer, or the granular
-    mono buffer extended for the circular taps) is one row of the pool's
-    table, zero-padded to the longest (a sampled buffer's live length rides
-    in as ``_buf_frames``); ``smap`` maps each read lane (a voice, or a grain
+    Samplers (a generator pool) render through ``process`` with their
+    voices as lanes [G, V], or ``process_granular``.  Each sampler's read
+    source (``read_table``: its buffer, or the granular mono buffer extended
+    for the circular taps) is one row of the pool's table, zero-padded to
+    the longest (a sampled buffer's live length rides in as
+    ``_buf_frames``); ``smap`` maps each read lane (a voice, or a grain
     slot) to its sampler's row, so the whole pool reads in one
-    ``ramp_read`` per block.  The block's lowered voice arrays go to the
-    device as one array (:meth:`stack`)."""
+    ``ramp_read`` per block.
+
+    Every other node renders through its ``render_lanes``: synth sources,
+    streamed sources, synth generators and the empty nodes.  Per-lane
+    static config that may differ inside a bank (start times, synth
+    frequencies) comes from the node's ``source_batch_statics`` and rides
+    in the bank's state under ``_statics``, as in the JAX package.
+
+    The block's lowered inputs go to the device as one array
+    (:meth:`stack`)."""
 
     def __init__(self, nodes: list, paths: list[str], ctx):
         self.nodes = nodes
@@ -270,33 +279,44 @@ class LeafBatch:
         self.ctx = ctx
         self.proto = nodes[0]
         dev = ctx.device
-        rows, lanes = zip(*(s.read_table(ctx.sample_rate) for s in nodes))
-        table = np.zeros((len(nodes), rows[0].shape[0],
-                          max(r.shape[-1] for r in rows)), np.float32)
-        for i, r in enumerate(rows):
-            table[i, :, : r.shape[-1]] = r
-        self.table = torch.as_tensor(table, device=dev)
-        self.smap = torch.repeat_interleave(
-            torch.arange(len(nodes), dtype=torch.int32, device=dev),
-            torch.tensor(lanes, device=dev), output_size=sum(lanes))
+        self.table = self.smap = None
+        if hasattr(self.proto, "read_table"):
+            rows, lanes = zip(*(s.read_table(ctx.sample_rate) for s in nodes))
+            table = np.zeros((len(nodes), rows[0].shape[0],
+                              max(r.shape[-1] for r in rows)), np.float32)
+            for i, r in enumerate(rows):
+                table[i, :, : r.shape[-1]] = r
+            self.table = torch.as_tensor(table, device=dev)
+            self.smap = torch.repeat_interleave(
+                torch.arange(len(nodes), dtype=torch.int32, device=dev),
+                torch.tensor(lanes, device=dev), output_size=sum(lanes))
+        rows = [getattr(s, "source_batch_statics", lambda c: {})(ctx)
+                for s in nodes]
+        self.statics = {k: torch.as_tensor(np.stack([r[k] for r in rows]),
+                                           device=dev) for k in rows[0]}
 
     def init_state(self):
-        """Each sampler's state, stacked: [G, V, ...]."""
-        return stack_states([s.init_state(self.ctx) for s in self.nodes])
+        """Each node's state, stacked: [G, ...] (a sampler's [G, V, ...]),
+        and the lanes' statics under ``_statics``."""
+        st = stack_states([s.init_state(self.ctx) for s in self.nodes])
+        if self.statics:
+            st["_statics"] = dict(self.statics)
+        return st
 
     def stack(self, lowered: list[dict]):
-        """The samplers' lowered inputs (one dict each) -> (one flat int32
-        host array, its layout, the pool's step bound, the live segments of
-        each automation knot array).
+        """The nodes' lowered inputs (one dict each) -> (one flat int32 host
+        array, or None when nothing is lowered, its layout, the pool's step
+        bound, the live segments of each automation knot array).
 
-        Every array is stacked over the samplers; a sampler that lacks an
+        Every array is stacked over the nodes; a node that lacks an
         optional one (per-note automation knots, loop bounds) gets its
         identity (knots past the block, zeros).  The int32 and float32
         arrays pack into one int32 array, float32 values by their bits, so
-        the pool's voices reach the device in one copy and split there
+        the bank's inputs reach the device in one copy and split there
         (:meth:`voices`)."""
         n = self.ctx.block_frames
-        smax = max(float(d["_smax"]) for d in lowered)
+        smax = max((float(d["_smax"]) for d in lowered if "_smax" in d),
+                   default=None)
         stacked, live = {}, {}
         for k in sorted(set().union(*lowered) - {"_smax"}):
             proto = np.asarray(next(d[k] for d in lowered if k in d))
@@ -309,16 +329,17 @@ class LeafBatch:
             stacked[k] = a
             if k.endswith("_t"):
                 live[k] = 1 + int((a < n).sum(axis=-1).max(initial=0))
-        flat = np.concatenate([a.reshape(-1).view(np.int32)
-                               for a in stacked.values()])
+        flat = (np.concatenate([a.reshape(-1).view(np.int32)
+                                for a in stacked.values()])
+                if stacked else None)
         layout = tuple((k, a.shape, a.dtype == np.float32)
                        for k, a in stacked.items())
         return flat, layout, smax, live
 
     @staticmethod
-    def voices(flat: torch.Tensor, layout) -> dict:
-        """The flat int32 tensor of :meth:`stack` on the device -> the voice
-        arrays, as views of it."""
+    def voices(flat, layout) -> dict:
+        """The flat int32 tensor of :meth:`stack` on the device -> the
+        lowered arrays, as views of it."""
         out, off = {}, 0
         for k, shape, is_float in layout:
             size = int(np.prod(shape))
@@ -331,12 +352,20 @@ class LeafBatch:
         """Every voice lane's read: [G*V, n] -> [G*V, ch, n]."""
         return rampread.ramp_read(self.table, self.smap, positions)
 
-    def render(self, state, params, voices: dict, smax: float, live: dict,
+    def render(self, state, params, voices: dict, smax, live: dict,
                frame0: int):
-        """params: each sampler parameter [G, n]; voices, smax, live: the
-        block's voice arrays on the device and the host values of
+        """params: each node parameter [G, n]; voices, smax, live: the
+        block's lowered arrays on the device and the host values of
         :meth:`stack`; frame0: the block's global start frame.  Returns
         (new state, out [G, ch, n])."""
+        if self.table is None:
+            st = dict(state)
+            statics = st.pop("_statics", {})
+            new, out = self.proto.render_lanes(st, params, {**voices, **statics},
+                                               live, frame0, self.ctx)
+            if statics:
+                new = dict(new, _statics=statics)
+            return new, out
         if self.proto.granular is not None:
             return self.proto.process_granular(state, params, voices, smax,
                                                frame0, self.read, self.ctx)

@@ -39,8 +39,12 @@ from ..config import DEFAULT_CONFIG, DEFAULT_INERTIA, EngineConfig, resolve_devi
 from ..errors import NotFoundError
 from ..events import ParamTimeline
 from ..generators.sampler import Sampler
+from ..generators.synth import SynthGenerator
 from ..ops import smoothing
+from ..sources.empty import EmptyGenerator, EmptySource
 from ..sources.file import NEVER, FileSource
+from ..sources.streamed import StreamedFileSource
+from ..sources.synth import SynthSource
 from .batching import (FileBatch, LeafBatch, group_key as _file_group_key,
                        stack_states)
 from .mixer import Mixer
@@ -68,6 +72,23 @@ class _FrozenMixer:
             yield f"{me}/{e.name}", "effect", e
         for c in self.children:
             yield from c.walk(f"{me}/")
+
+
+# the source and generator types a program renders: file sources as
+# FileBatch lanes, every other type as lanes of a LeafBatch
+SOURCE_TYPES = (FileSource, Sampler, SynthSource, SynthGenerator,
+                StreamedFileSource, EmptySource, EmptyGenerator)
+
+
+def bank_inputs(node, lowered, stop: int, kill: int) -> dict:
+    """A leaf node's block inputs in its LeafBatch: what it lowered, and,
+    for every node but a sampler (which ignores them, as in the JAX
+    package), its stop and kill frames."""
+    out = dict(lowered or {})
+    if not isinstance(node, Sampler):
+        out["_stop_at"] = np.int32(min(stop, NEVER))
+        out["_kill_at"] = np.int32(min(kill, NEVER))
+    return out
 
 
 def _freeze_mixer(m: Mixer) -> _FrozenMixer:
@@ -213,9 +234,10 @@ class RenderProgram:
                 continue
             if path in self.nodes:
                 raise ValueError(f"duplicate node path {path}")
-            if kind == "source" and type(obj) not in (FileSource, Sampler):
+            if kind == "source" and type(obj) not in SOURCE_TYPES:
                 raise NotImplementedError(
-                    f"{type(obj).__name__} sources are not ported yet")
+                    f"{type(obj).__name__} sources have no renderer in "
+                    "this package")
             self.nodes[path] = obj
             self.path_of[id(obj)] = path
             if kind == "source":
@@ -255,22 +277,26 @@ class RenderProgram:
 
     def _build_source_batches(self):
         """Every file source renders as a lane of a FileBatch: one bank per
-        group of homogeneous sources; every sampler as part of a generator
-        pool (LeafBatch): one pool per ``source_batch_key`` (a key of None,
-        a granular sampler's, is a pool of its own).  With ``batch_sources``
-        off, each source is a bank or pool of its own."""
+        group of homogeneous sources; every other source as a lane of a
+        LeafBatch (a sampler's generator pool, a bank of synth or streamed
+        sources): one per ``source_batch_key``, where a key of None (a
+        granular sampler's, a synth generator's, an empty node's) makes a
+        bank of its own.  With ``batch_sources`` off, each source is a bank
+        of its own."""
         groups: dict[tuple, list[str]] = {}
         pools: dict[tuple, list[str]] = {}
         batch = self.config.batch_sources
         for i, path in enumerate(self.source_paths):
             node = self.nodes[path]
-            if isinstance(node, Sampler):
-                key = node.source_batch_key(self.ctx) if batch else None
-                pools.setdefault(("alone", i) if key is None else key,
-                                 []).append(path)
-            else:
+            if type(node) is FileSource:
                 key = _file_group_key(node) if batch else i
                 groups.setdefault(key, []).append(path)
+            else:
+                key = (getattr(node, "source_batch_key", lambda c: None)(
+                    self.ctx) if batch else None)
+                pools.setdefault(("alone", i) if key is None
+                                 else (type(node).__name__,) + key,
+                                 []).append(path)
         self.file_batches: list[FileBatch] = []
         self._batch_rows: list[dict] = []
         # source path -> (bank or pool index, lane)
@@ -446,9 +472,10 @@ class RenderProgram:
                 self.kill_frames[path] = old.kill_frames[path]
         new = self.init_state()
 
-        def carry(new_groups, old_groups, paths_of, old_loc):
+        def carry(new_groups, old_groups, paths_of, old_loc, keys=None):
             """Each group's lanes from wherever their path lived in the old
-            program (``old_loc``: path -> (old group, old lane))."""
+            program (``old_loc``: path -> (old group, old lane)); with
+            ``keys(g)``, only those top-level keys of group g's state."""
             out = []
             for g, st in enumerate(new_groups):
                 by_old: dict = {}
@@ -456,16 +483,27 @@ class RenderProgram:
                     loc = old_loc.get(path)
                     if loc is not None:
                         by_old.setdefault(loc[0], []).append((lane, loc[1]))
+                ks = None if keys is None else keys(g)
                 for og, pairs in by_old.items():
-                    st = _carry_rows(st, old_groups[og], pairs)
+                    if ks is None:
+                        st = _carry_rows(st, old_groups[og], pairs)
+                        continue
+                    st = dict(st)
+                    for k in ks:
+                        if k in st and k in old_groups[og]:
+                            st[k] = _carry_rows(st[k], old_groups[og][k], pairs)
                 out.append(st)
             return out
 
         new["file_batches"] = carry(
             new["file_batches"], old_state["file_batches"],
             lambda g: self.file_batches[g].paths, old._bank_lane)
-        new["pools"] = carry(new["pools"], old_state["pools"],
-                             lambda g: self.pools[g].paths, old._pool_lane)
+        # a sampler pool carries its whole state, another bank the keys
+        # its node type names (BATCH_CARRY: a synth's own state)
+        new["pools"] = carry(
+            new["pools"], old_state["pools"], lambda g: self.pools[g].paths,
+            old._pool_lane,
+            lambda g: getattr(self.pools[g].proto, "BATCH_CARRY", None))
         for cid, c in enumerate(self.chains):
             for i in range(len(c["effects"][0])):
                 old_loc = {}
@@ -626,8 +664,11 @@ class RenderProgram:
             arrays[f"b{bi}.seek_pos"] = lanes(
                 lambda p: extra.get(p, {}).get("_seek_pos", 0.0), np.float32)
         for pi, pool in enumerate(self.pools):
-            flat, layout, smax, live = pool.stack([extra[p] for p in pool.paths])
-            arrays[f"q{pi}"] = flat
+            flat, layout, smax, live = pool.stack([
+                bank_inputs(self.nodes[p], extra.get(p), *inputs["stops"][p])
+                for p in pool.paths])
+            if flat is not None:
+                arrays[f"q{pi}"] = flat
             host[f"q{pi}"] = (layout, smax, live)
         return arrays, host
 
@@ -744,7 +785,7 @@ class RenderProgram:
             params = {pid: rows(sel) for pid, sel in self._pool_rows[pi].items()}
             layout, smax, live = host[f"q{pi}"]
             pool_state, out = pool.render(
-                state["pools"][pi], params, pool.voices(dev[f"q{pi}"], layout),
+                state["pools"][pi], params, pool.voices(dev.get(f"q{pi}"), layout),
                 smax, live, frame0)
             new_pools.append(pool_state)
             for i, p in enumerate(pool.paths):

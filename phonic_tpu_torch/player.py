@@ -21,11 +21,6 @@ copies them to the device in one asynchronous copy
 audio and levels back into pinned host buffers, and records an event;
 finishing it waits on that event alone.  So with ``pipeline_depth`` D the
 host lowers block k+D while the card renders block k.
-
-Not ported yet: synth playback (``play_synth``, and ``add_generator`` of a
-synth generator: sources/synth.py, generators/synth.py) and streamed file
-playback (``play_file(stream=True)``: sources/streamed.py); they raise
-NotImplementedError.
 """
 
 from __future__ import annotations
@@ -43,15 +38,16 @@ from .config import EngineConfig, resolve_device
 from .effects.gain import GainEffect
 from .errors import NotFoundError, ParameterError, PhonicError
 from .generators.base import Generator
-from .generators.sampler import Sampler
 from .graph.batching import FileBatch, LeafBatch
-from .graph.engine import RenderProgram, tree_map
+from .graph.engine import SOURCE_TYPES, RenderProgram, bank_inputs, tree_map
 from .graph.mixer import Mixer
 from .graph.nodes import Effect
 from .io.decoder import AudioFileBuffer
 from .ops.convert import linear_to_db
 from .outputs.base import OutputDevice
 from .sources.file import NEVER, FilePlaybackOptions, FileSource
+from .sources.streamed import StreamedFileSource
+from .sources.synth import SynthDef, SynthPlaybackOptions, SynthSource
 
 
 
@@ -621,18 +617,29 @@ class Player:
                   mixer: Optional[Mixer] = None,
                   stream: bool = False,
                   context=None) -> PlaybackHandle:
-        """``stream=True`` (the O(window)-memory streamed source, reference:
-        FilePlaybackOptions::streamed, src/source/file.rs:96) is not ported
-        yet and raises.  ``context`` is an opaque value echoed in this
-        source's status events (reference: play_file_with_context,
-        src/source/file.rs:282-297)."""
+        """``stream=True`` plays via the O(window)-memory streamed source
+        (reference: FilePlaybackOptions::streamed, src/source/file.rs:96).
+        A path + stream=True never fully decodes: the source reads through
+        the chunked incremental decoder (io/chunked.py).  ``context`` is an
+        opaque value echoed in this source's status events (reference:
+        play_file_with_context, src/source/file.rs:282-297)."""
         if stream:
-            raise NotImplementedError(
-                "streamed file playback needs sources/streamed.py, which is "
-                "not ported yet")
-        buf = (file if isinstance(file, AudioFileBuffer)
-               else AudioFileBuffer.from_file(file))
-        src = FileSource(buf, options)
+            src = StreamedFileSource(file, options)
+        else:
+            buf = (file if isinstance(file, AudioFileBuffer)
+                   else AudioFileBuffer.from_file(file))
+            src = FileSource(buf, options)
+        return self._play_source(src, mixer, context)
+
+    def play_synth(self, synth: SynthDef,
+                   options: Optional[SynthPlaybackOptions] = None,
+                   mixer: Optional[Mixer] = None,
+                   context=None) -> PlaybackHandle:
+        """``context``: see play_file (reference:
+        play_synth_source_with_context, src/source/synth.rs)."""
+        return self._play_source(SynthSource(synth, options), mixer, context)
+
+    def _play_source(self, src, mixer, context) -> PlaybackHandle:
         (mixer or self.main_mixer).add_source(src)
         self._transient.add(src)
         if context is not None:
@@ -640,23 +647,15 @@ class Player:
         self._invalidate()
         return PlaybackHandle(self, src)
 
-    def play_synth(self, synth, options=None, mixer: Optional[Mixer] = None,
-                   context=None) -> PlaybackHandle:
-        """Synth playback (reference: play_synth_source_with_context,
-        src/source/synth.rs) needs sources/synth.py, which is not ported
-        yet."""
-        raise NotImplementedError(
-            "synth playback needs sources/synth.py, which is not ported yet")
-
     def play_generator(self, generator: Generator,
                        mixer: Optional[Mixer] = None,
                        context=None) -> GeneratorPlaybackHandle:
-        """Samplers play; a synth generator needs generators/synth.py, which
-        is not ported yet."""
-        if not isinstance(generator, Sampler):
+        """Samplers, synth generators and the empty generator play; another
+        Generator subclass has no renderer in this package and raises."""
+        if type(generator) not in SOURCE_TYPES:
             raise NotImplementedError(
-                f"{type(generator).__name__} generators need "
-                "generators/synth.py, which is not ported yet")
+                f"{type(generator).__name__} generators have no renderer in "
+                "this package")
         (mixer or self.main_mixer).add_source(generator)
         if context is not None:
             self._contexts[generator] = context
@@ -885,9 +884,11 @@ class Player:
                 return unit.render(st, pos, values["VOLU"], values["PANN"],
                                    values["SPED"], *args)
         else:
-            flat, layout, smax, live = unit.stack(
-                [node.lower_block_inputs(pos, n)])
-            voices = unit.voices(torch.as_tensor(flat, device=dev), layout)
+            flat, layout, smax, live = unit.stack([bank_inputs(
+                node, node.lower_block_inputs(pos, n),
+                prog.stop_frames[path], prog.kill_frames[path])])
+            voices = unit.voices(None if flat is None else
+                                 torch.as_tensor(flat, device=dev), layout)
 
             def fn():
                 return unit.render(st, values, voices, smax, live, pos)

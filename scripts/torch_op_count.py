@@ -3,8 +3,8 @@ the CPU.
 
     python scripts/torch_op_count.py [path] [block_frames ...]
 
-``path`` is one of headline, mastering, sampler, play_file, granular
-(default granular); the block sizes default to 4096 8192 16384.  For each
+``path`` is one of headline, mastering, sampler, play_file, granular,
+synth (default granular); the block sizes default to 4096 8192 16384.  For each
 size the script renders one block, then counts the operations PyTorch
 dispatches while it renders the next one (views excluded: they launch
 nothing), and prints one JSON line; then the growth per extra 2048 frames
@@ -27,10 +27,11 @@ from phonic_tpu_torch.headline import mixer_graph_program  # noqa: E402
 from phonic_tpu_torch.mastering import mastering_program  # noqa: E402
 from phonic_tpu_torch.play_file import play_file_program  # noqa: E402
 from phonic_tpu_torch.sampler64 import sampler_program  # noqa: E402
+from phonic_tpu_torch.synth64 import synth_program  # noqa: E402
 
 PROGRAMS = {"headline": mixer_graph_program, "mastering": mastering_program,
             "sampler": sampler_program, "play_file": play_file_program,
-            "granular": granular_program}
+            "granular": granular_program, "synth": synth_program}
 VIEWS = {"view", "_unsafe_view", "expand", "slice", "select", "unsqueeze",
          "squeeze", "transpose", "permute", "alias", "t", "unbind", "split",
          "as_strided", "reshape", "detach", "lift_fresh"}

@@ -42,7 +42,13 @@ names.append("chip_smoke")
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(len(names), "modules")
+print(" ".join(names))
 """
+
+# the modules of the synth / streamed slice, each imported by the probe
+SLICE_G = ("ops.osc", "ops.waveform", "ops.fader", "sources.synth", "synths",
+           "generators.synth", "sources.empty", "effects.filter",
+           "effects.pan", "sources.streamed", "synth64")
 
 
 def test_port_imports_without_jax():
@@ -53,7 +59,10 @@ def test_port_imports_without_jax():
     count = int(out.stdout.split()[0])
     # the package's modules (player, checkpoint and player_rt among them)
     # and chip_smoke
-    assert count >= 60, out.stdout
+    assert count >= 71, out.stdout
+    imported = set(out.stdout.split("\n", 1)[1].split())
+    missing = [m for m in SLICE_G if f"phonic_tpu_torch.{m}" not in imported]
+    assert not missing, missing
 
 
 def test_probe_blocks_the_jax_package():

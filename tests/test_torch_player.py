@@ -40,7 +40,11 @@ from phonic_tpu_torch.errors import CheckpointError
 from phonic_tpu_torch.generators.base import Generator, GeneratorPlaybackOptions
 from phonic_tpu_torch.graph.engine import AGE_MAX
 from phonic_tpu_torch.outputs.null import NullOutput
-from phonic_tpu_torch.player import Player, PlayerConfig
+from phonic_tpu_torch import synths
+from phonic_tpu_torch.io.wav import write_wav
+from phonic_tpu_torch.player import PlaybackHandle, Player, PlayerConfig
+from phonic_tpu_torch.sources.streamed import StreamedFileSource
+from phonic_tpu_torch.synth64 import synth_player
 from phonic_tpu_torch.player_rt import player_rt_player
 
 SR = 48000
@@ -357,13 +361,37 @@ def _player_rt_program():
     return player._ensure_program()
 
 
+def _synth_program():
+    """synth_64v's Player at 1024-frame blocks: a synth generator and a
+    bank of synth sources, the filter and pan effects."""
+    return synth_player(block_frames=1024, device="cpu")._ensure_program()
+
+
+def _streamed_program(tmp_path):
+    """Two streamed sources in one bank, one with a speed change."""
+    t = np.arange(6000) / SR
+    path = tmp_path / "s.wav"
+    write_wav(path, np.stack([np.sin(2 * np.pi * 300 * t)] * 2
+                             ).astype(np.float32) * 0.5, SR)
+    main = Mixer("main")
+    for k in range(2):
+        main.add_source(StreamedFileSource(str(path), FilePlaybackOptions(
+            start_time=300 * k, repeat=None), name=f"s{k}"))
+    prog = RenderProgram(main, EngineConfig(block_frames=1024, device="cpu",
+                                            meter_mixers=True,
+                                            auto_bypass=True))
+    prog.set_parameter("main/s1", "SPED", 1.5, at_frame=1500)
+    return prog
+
+
 @pytest.mark.parametrize("make", [
-    lambda: _small_program(meter_mixers=True, auto_bypass=True)[0],
-    _player_rt_program], ids=["small", "player_rt"])
-def test_step_packed_copies_nothing_from_the_host(monkeypatch, make):
+    lambda tmp: _small_program(meter_mixers=True, auto_bypass=True)[0],
+    lambda tmp: _player_rt_program(), lambda tmp: _synth_program(),
+    _streamed_program], ids=["small", "player_rt", "synth", "streamed"])
+def test_step_packed_copies_nothing_from_the_host(monkeypatch, make, tmp_path):
     """Inside ``step_packed`` no tensor is made from host data: on the card
     each such tensor is a copy that waits for the stream."""
-    prog = make()
+    prog = make(tmp_path)
     state, _ = prog.step_packed(prog.init_state(), prog.packed_block_inputs(0))
     packed = prog.packed_block_inputs(1)
     made = []
@@ -564,16 +592,18 @@ def test_player_levels_and_master_volume():
 
 
 def test_deferred_surfaces_raise():
+    """Synth and streamed playback play now (tests/test_torch_synth.py and
+    tests/test_torch_streamed.py hold them against the JAX package); a
+    Generator subclass the package has no renderer for still raises."""
     player = Player(NullOutput(SR, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="sources/synth.py"):
-        player.play_synth(object())
-    with pytest.raises(NotImplementedError, match="sources/streamed.py"):
-        player.play_file(_tone(PORT, 100, 440), stream=True)
+    assert isinstance(player.play_synth(synths.dx7()), PlaybackHandle)
+    assert isinstance(player.play_file(_tone(PORT, 100, 440), stream=True),
+                      PlaybackHandle)
 
     class Synth(Generator):
         pass
 
-    with pytest.raises(NotImplementedError, match="generators/synth.py"):
+    with pytest.raises(NotImplementedError, match="no renderer"):
         player.add_generator(Synth())
 
 
