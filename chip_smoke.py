@@ -1,8 +1,10 @@
 """GPU smoke test of the PyTorch port: build the CUDA kernels, check each
 against its plain PyTorch version on the card, then render the headline
 mixer graph, the mastering chain, the 64-voice sampler, the play_file path
-(preloaded and streamed), the granular sampler, the live Player and the
-synth path at full width on the card and check them.
+(preloaded and streamed), the granular sampler, the live Player, the
+synth path and the headline graph as 8 batched lanes at full width on the
+card, render the port's examples and drive its output devices, and check
+them.
 
     python3 chip_smoke.py
 
@@ -93,6 +95,21 @@ phase fails.  Phases:
    unautomated note's frequency multiplier exactly 1 on the card; then the
    same graph in a Player (``play_generator``, ``play_synth``) at
    8192-frame blocks, blocks 0-3 against the CPU Player to -90 dB;
+   (f) the headline graph as 8 independent lanes of one
+   ``BatchedRenderProgram`` (the lanes folded into every bank): one warm
+   block, then 4 blocks timed with the launch counters set to 0 just
+   before, exactly 1 ramp_read (B=128), 9 iir2 (R=64) and 1 iir1 (R=16)
+   per block, as one lane makes; every lane against phase 3's program
+   rendered on the card within 1e-6, lane 0 against phase 3's CPU render
+   to -90 dB, ``mixdown`` against 8 x the single lane within 1e-4,
+   ``render_scan`` against ``render`` bit for bit, and the aggregate rate
+   (lanes x audio seconds per wall second); (g) every port example
+   (``phonic_tpu_torch.examples``) rendered offline with ``-o`` on the
+   card and on the CPU (equal frame counts, -90 dB of peak), 1 s of a
+   render played through ``RtOutput`` (ALSA when present, else its paced
+   sink; its ``sample_position`` and wall time logged), and a
+   ``WebOutput`` on 127.0.0.1 serving its WAV header and the written
+   frames to one read with a timeout;
 7. under ``torch.profiler``, after every timed render (a profiler session
    slows the launches that follow it in the process): one more block of
    each path, which gives the device operations, the host-to-device
@@ -103,11 +120,12 @@ phase fails.  Phases:
    synchronising calls PyTorch reports in it (its sync debug mode) are
    logged with where they come from: the synth Player fails the run on a
    ``cudaStreamSynchronize`` or a reported call;
+   the batched headline's block is one step of its 8 lanes;
    each kernel's kernel-only device time (the profiler's events of its own
    launches, and their number per call) and its share of its bound, at
-   each path's shape and at the byte-bound shapes off the paths (iir2 and
-   iir1 at R=40); and the headline graph's rate once more, after the
-   profiler.
+   each path's shape (``batched_headline``: B=128, R=64, R=16) and at the
+   byte-bound shapes off the paths (iir2 and iir1 at R=40); and the
+   headline graph's rate once more, after the profiler.
 
 The line before the last is a JSON object with each kernel's numbers from
 this run: at top level those of the mastering chain, which runs all five
@@ -118,13 +136,18 @@ of the shapes timed off the paths.  The last line is
 """
 
 import collections
+import contextlib
 import functools
+import io
 import json
 import re
+import runpy
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 import warnings
 from pathlib import Path
 
@@ -146,6 +169,9 @@ from phonic_tpu_torch.play_file import (
     BLOCK_FRAMES as PLAY_BLOCK, file_program, play_file_program, render_file,
 )
 from phonic_tpu_torch.outputs.null import NullOutput
+from phonic_tpu_torch.outputs.rt import RtOutput
+from phonic_tpu_torch.outputs.web import WebOutput, _wav_stream_header
+from phonic_tpu_torch.parallel.mesh import BatchedRenderProgram
 from phonic_tpu_torch.player import Player, PlayerConfig
 from phonic_tpu_torch.player_rt import (
     BLOCK_FRAMES as PLAYER_BLOCK, player_rt_player,
@@ -161,6 +187,8 @@ from phonic_tpu_torch.synth64 import synth_player, synth_program
 
 BLOCK = 131072
 SR = 48000
+# the batched headline's lanes (phase 6f)
+LANES = 8
 # the decoded file of phase 6b: seconds, rate, channels
 FILE_SECS, FILE_SR, FILE_CH = 180, 44100, 2
 DB90 = 10.0 ** (-90.0 / 20.0)
@@ -345,6 +373,7 @@ def ramp_expected(src, smap, pos):
 RAMP_CASES = (
     (1, 1, 1, 48001, PLAY_BLOCK, "play_file", "loop"),
     (16, 1, 16, 26656, BLOCK, "headline", "ramps"),
+    (16 * LANES, 1, 16, 26656, BLOCK, "batched_headline", "ramps"),
     (16, 1, 16, 26656, PLAYER_BLOCK, "player", "ramps"),
     (4, 1, 4, 48001, BLOCK, "mastering", "ramps"),
     (16, 1, 16, 26656, 1000, None, "ramps"),
@@ -422,7 +451,9 @@ def check_kernels(dev):
     # stable coefficients: every row sum of |A| stays below 1.  Beside the
     # paths' shapes: one segment (4096 samples) and one off, odd lengths
     # (rows that start unaligned), one row and forty
-    for r, t, path in ((8, BLOCK, "headline"), (2, 8192, "mastering"),
+    for r, t, path in ((8, BLOCK, "headline"),
+                       (8 * LANES, BLOCK, "batched_headline"),
+                       (2, 8192, "mastering"),
                        (8, PLAYER_BLOCK, "player"), (64, BLOCK, "synth_64v"),
                        (2, BLOCK, "synth_64v/filter"),
                        (1, 4095, None), (1, 4096, None),
@@ -439,7 +470,9 @@ def check_kernels(dev):
                fn, f"R={r} T={t}", timed=r == 40 and t == BLOCK)
     # beside the paths' shapes: two segments (2 x 4096 samples) and one off,
     # rows that start unaligned and cross a segment, forty rows
-    for r, t, path in ((2, BLOCK, "headline"), (2, 8192, "mastering"),
+    for r, t, path in ((2, BLOCK, "headline"),
+                       (2 * LANES, BLOCK, "batched_headline"),
+                       (2, 8192, "mastering"),
                        (2, PLAYER_BLOCK, "player"), (2, 999, None),
                        (7, BLOCK, None), (7, 999, None),
                        (1, 8191, None), (1, 8192, None), (1, 8193, None),
@@ -681,13 +714,14 @@ def read_counters():
 
 
 def render_path(name, make_program, dev, kernels_used, blocks=4,
-                once_per_block=(), per_block=None):
+                once_per_block=(), per_block=None, refs=None):
     """Render ``blocks`` blocks of a program on the card after one warm-up
     block, with the launch counters set to 0 just before; check that each
     kernel of the path launched at least once per block (those of
     ``once_per_block`` exactly once, those of ``per_block`` exactly that
     many times), the audio, and blocks 0-1 against the same program on the
-    CPU.  Returns the launches of this run and the program."""
+    CPU (kept in ``refs[name]`` when given).  Returns the launches of this
+    run and the program."""
     prog = make_program(dev)
     n = prog.ctx.block_frames
     prog.render(n)  # warm-up: allocator and library start-up
@@ -705,7 +739,9 @@ def render_path(name, make_program, dev, kernels_used, blocks=4,
                            f"{[want[k] for k in extra]} times per block: "
                            f"{extra}")
     check_audio(name, audio, (2, blocks * n))
-    against_cpu(name, audio, make_program("cpu"))
+    ref = against_cpu(name, audio, make_program("cpu"))
+    if refs is not None:
+        refs[name] = ref
     return launches, prog
 
 
@@ -720,7 +756,7 @@ def check_audio(name, audio, shape):
 
 def against_cpu(name, audio, cpu_prog):
     """Blocks 0-1 of a card render against the same program rendered on
-    the CPU, to -90 dB of each block's peak."""
+    the CPU, to -90 dB of each block's peak.  Returns the CPU render."""
     n = cpu_prog.ctx.block_frames
     t0 = time.perf_counter()
     ref = cpu_prog.render(2 * n)
@@ -733,6 +769,7 @@ def against_cpu(name, audio, cpu_prog):
             f"{20 * np.log10(max(err, 1e-30) / rpeak):.1f} dB")
         if not err <= DB90 * rpeak:
             raise RuntimeError(f"{name}: block {b} disagrees with the CPU render")
+    return ref
 
 
 def timed_render(prog, blocks=None):
@@ -916,6 +953,159 @@ def synth_phase(dev):
     check_audio("synth player", got[0], (2, 4 * PLAYER_BLOCK))
     against_cpu_player("synth player", got, player_blocks(cpu, 4))
     return launches, prog, player
+
+
+def batched_phase(dev, prog, single, ref):
+    """Phase 6f: the headline graph as LANES independent lanes in one
+    ``BatchedRenderProgram``: one warm block, then 4 blocks timed with the
+    launch counters set to 0 just before (exactly the single lane's 1
+    ramp_read, 9 iir2 and 1 iir1 per block, each over LANES times the
+    rows); every lane against the card's single-lane render ``single``
+    within 1e-6, lane 0 against the CPU render ``ref`` to -90 dB,
+    ``mixdown`` against LANES x the single lane within 1e-4 and
+    ``render_scan`` against ``render`` bit for bit.  Then the single-lane
+    program ``prog`` and the batched one render 4 blocks each, back to
+    back (one lane, lanes, lanes, one lane), for rates measured alike.
+    Returns the launches and the batched program."""
+    batched = BatchedRenderProgram(
+        mixer_graph_program(block_frames=BLOCK, device=dev), lanes=LANES)
+    states = batched.init_states()
+    batched.step(states, batched.block_inputs(0))  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    audio = batched.render(4 * BLOCK)
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    log(f"  {LANES} lanes x {4 * BLOCK} frames in {wall:.3f} s: aggregate "
+        f"{LANES * 4 * BLOCK / SR / wall:.1f} audio-seconds per second")
+    want = {"ramp_read": 4, "iir2": 9 * 4, "iir1": 4}
+    if {k: launches[k] for k in want} != want:
+        raise RuntimeError(f"batched headline: launches {launches}, want "
+                           f"{want} over 4 blocks")
+    if audio.shape != (LANES, 2, 4 * BLOCK):
+        raise RuntimeError(f"batched headline: shape {audio.shape}")
+    lane_err = float(np.abs(audio - single[None]).max())
+    log(f"  every lane vs the single-lane card render: max_abs_err "
+        f"{lane_err:.3e}")
+    if not lane_err <= 1e-6:
+        raise RuntimeError("batched headline: a lane differs from one lane")
+    against_cpu_ref("batched headline lane 0", audio[0], ref)
+    mix = BatchedRenderProgram(batched.program, lanes=LANES, mixdown=True)
+    _, y = mix.step(mix.init_states(), mix.block_inputs(0))
+    mix_err = float(np.abs(y[0].cpu().numpy() - LANES * single[:, :BLOCK]).max())
+    log(f"  mixdown vs {LANES} x the single lane: max_abs_err {mix_err:.3e}")
+    if y.shape != (1, 2, BLOCK) or not mix_err <= 1e-4:
+        raise RuntimeError("batched headline: mixdown disagrees")
+    scan = BatchedRenderProgram(
+        mixer_graph_program(block_frames=BLOCK, device=dev), lanes=LANES)
+    if not np.array_equal(scan.render_scan(4 * BLOCK), audio):
+        raise RuntimeError("batched headline: render_scan differs from render")
+    log("  render_scan equals render bit for bit")
+    for lanes in (1, LANES, LANES, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (prog if lanes == 1 else batched).render(4 * BLOCK)
+        wall = time.perf_counter() - t0
+        log(f"  back to back, {lanes} lane(s) x {4 * BLOCK} frames in "
+            f"{wall:.3f} s: {lanes * 4 * BLOCK / SR / wall:.2f} audio-seconds "
+            "per second")
+    return launches, batched
+
+
+def against_cpu_ref(name, audio, ref):
+    """Blocks 0-1 of ``audio`` against a CPU render, to -90 dB of each
+    block's peak."""
+    for b in range(2):
+        sl = slice(b * BLOCK, (b + 1) * BLOCK)
+        err = float(np.abs(audio[:, sl] - ref[:, sl]).max())
+        rpeak = float(np.abs(ref[:, sl]).max())
+        log(f"  {name} block {b}: max_abs_err {err:.3e} vs CPU, "
+            f"{20 * np.log10(max(err, 1e-30) / rpeak):.1f} dB")
+        if not err <= DB90 * rpeak:
+            raise RuntimeError(f"{name}: block {b} disagrees with the CPU")
+
+
+# the port's examples phase 6g renders: name -> arguments
+EXAMPLES = {
+    "play_file": [], "play_sequence": [], "play_grains": [], "play_synth": [],
+    "play_custom": [],
+    "play_graph": ["--seconds", "2", "--submixers", "2",
+                   "--sources-per-mixer", "2"],
+    "play_device": [], "play_web": ["--seconds", "1.5"],
+    "play_interactive": ["--selftest"],
+}
+
+
+def run_example(name, out, device):
+    """Render a port example offline (``-o``) on ``device``, its printing
+    kept; returns the WAV's audio and the seconds it took."""
+    argv = [name, "-o", str(out), "--device", device, *EXAMPLES[name]]
+    old = sys.argv
+    sys.argv = argv
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            runpy.run_module(f"phonic_tpu_torch.examples.{name}",
+                             run_name="__main__")
+    finally:
+        sys.argv = old
+    audio, _ = wav_io.read_wav(out)
+    return np.asarray(audio), time.perf_counter() - t0
+
+
+def outputs_phase(tmp):
+    """Phase 6g: every port example rendered with ``-o`` on the card and on
+    the CPU (equal frame counts, -90 dB of peak); ``RtOutput`` playing 1 s
+    of a render; ``WebOutput`` on 127.0.0.1 serving its header and the
+    written frames to one read."""
+    for name in EXAMPLES:
+        card, secs = run_example(name, Path(tmp) / f"{name}.wav", "cuda")
+        cpu, cpu_secs = run_example(name, Path(tmp) / f"{name}_cpu.wav", "cpu")
+        peak = float(np.abs(cpu).max())
+        err = float(np.abs(card - cpu).max()) if card.shape == cpu.shape \
+            else float("inf")
+        log(f"  example {name}: {card.shape[-1]} frames, card {secs:.2f} s, "
+            f"CPU {cpu_secs:.2f} s, max_abs_err {err:.3e}, "
+            f"{20 * np.log10(max(err, 1e-30) / peak):.1f} dB of peak "
+            f"{peak:.3f}")
+        if card.shape != cpu.shape or not np.isfinite(card).all() \
+                or peak < 0.05 or not err <= DB90 * peak:
+            raise RuntimeError(f"example {name}: card and CPU renders differ")
+    block = run_example("play_device", Path(tmp) / "rt.wav", "cuda")[0][:, :SR]
+    out = RtOutput(SR, 2)
+    try:
+        t0 = time.perf_counter()
+        for k in range(0, SR, 4800):
+            out.write(np.ascontiguousarray(block[:, k:k + 4800]))
+        wrote = time.perf_counter() - t0
+        time.sleep(0.3)
+        log(f"  RtOutput ({'ALSA' if out.uses_alsa else 'paced sink'}, "
+            f"{out.sample_format}): 1 s written in {wrote:.3f} s of wall, "
+            f"sample_position {out.sample_position} after "
+            f"{time.perf_counter() - t0:.3f} s")
+        if out.sample_position <= 0:
+            raise RuntimeError("RtOutput: no frame played")
+    finally:
+        out.close()
+    web = WebOutput(SR, 2, host="127.0.0.1", port=0, queue_blocks=4)
+    try:
+        frames = np.ascontiguousarray(block[:, :2048])
+        writer = threading.Thread(target=lambda: [web.write(frames)
+                                                  for _ in range(4)],
+                                  daemon=True)
+        writer.start()
+        with urllib.request.urlopen(web.url + "stream.wav", timeout=10) as req:
+            hdr = req.read(44)
+            body = req.read(2048 * 2 * 4)
+        writer.join(timeout=10)
+        got = np.frombuffer(body, np.float32).reshape(-1, 2).T
+        if hdr != _wav_stream_header(SR, 2) or not np.array_equal(got, frames):
+            raise RuntimeError("WebOutput: bad header or frames")
+        log(f"  WebOutput on {web.url}: header and {got.shape[1]} frames "
+            "served back")
+    finally:
+        web.close()
 
 
 def profile_block(run):
@@ -1171,11 +1361,11 @@ def main():
 
     phase("2: kernels against their plain versions")
     measured, off_path, calls = check_kernels(dev)
-    paths, progs = {}, {}
+    paths, progs, refs = {}, {}, {}
     phase("3: headline graph on the card")
     paths["headline"], progs["headline"] = render_path(
         "headline", lambda d: mixer_graph_program(block_frames=BLOCK, device=d),
-        dev, ("ramp_read", "iir2", "iir1"))
+        dev, ("ramp_read", "iir2", "iir1"), refs=refs)
     phase("4: mastering chain on the card")
     paths["mastering"], progs["mastering"] = render_path(
         "mastering", lambda d: mastering_program(block_frames=BLOCK, device=d),
@@ -1207,11 +1397,18 @@ def main():
     paths["player"], player = player_phase(dev)
     phase("6e: synth_64v, the synth path, on the card")
     paths["synth_64v"], progs["synth_64v"], synth_pl = synth_phase(dev)
+    phase(f"6f: the headline graph as {LANES} lanes of one batched program")
+    single = progs["headline"].render(4 * BLOCK)
+    paths["batched_headline"], batched = batched_phase(
+        dev, progs["headline"], single, refs["headline"])
+    phase("6g: the port's examples, RtOutput and WebOutput on the card")
+    outputs_phase(tmp.name)
     # a profiler session leaves launches slower for the rest of the process,
     # so every profiled number comes after the timed renders
     phase("7: under the profiler")
     for name, prog in progs.items():
         device_busy(name, prog)
+    device_busy("batched_headline", batched.shards[0])
     player_busy(player)
     player_busy(synth_pl, "synth player", strict=True)
     kernel_times(calls)

@@ -16,6 +16,9 @@ from typing import Union
 
 import torch
 
+# dB value treated as silence / zero gain (reference: src/utils.rs:21).
+MINUS_INF_DB = -200.0
+
 # Reference sample rate that smoother coefficients are normalised against
 # (reference: src/utils/smoothing.rs:150 `sample_rate_comp = 44100 / sr`).
 SMOOTHER_REFERENCE_SR = 44100.0
@@ -27,6 +30,10 @@ DEFAULT_INERTIA = 1.0 / 256.0
 # Snap threshold: the reference stops ramping once the per-sample increment
 # drops below 100 * f32 epsilon (reference: src/utils/smoothing.rs:196-200).
 SMOOTHER_EPSILON = 100.0 * float(torch.finfo(torch.float32).eps)
+
+# Modulation / glide update granularity in frames
+# (reference: src/modulation/processor.rs:14, src/source/file/common.rs:56).
+MODULATION_BLOCK = 64
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -71,6 +78,10 @@ class EngineConfig:
     # take float32 only; float64 runs on the CPU plain versions.
     scan_dtype: torch.dtype = torch.float32
     device: Union[str, torch.device] = "cuda"
+
+    @property
+    def block_seconds(self) -> float:
+        return self.block_frames / float(self.sample_rate)
 
 
 DEFAULT_CONFIG = EngineConfig()

@@ -10,6 +10,11 @@ buffers, per-lane metadata, a high-quality bank's sinc table) is not taken
 from the JAX state — the JAX package holds it packed for its chip — but
 comes from the port program's own graph.  This package never imports JAX;
 the argument is plain numpy.
+
+:func:`batched_state_from_jax` does the same for the stacked lane states
+of the JAX package's ``BatchedRenderProgram``: lane k of each of its
+leaves becomes lane k of each folded bank of the port's
+``BatchedRenderProgram``.
 """
 
 from __future__ import annotations
@@ -103,13 +108,18 @@ def state_from_jax(np_state, program):
             st["_statics"] = statics
         pools.append(st)
 
+    # the JAX package's lane-batched programs step a twin with batched
+    # effect chains off: its chain states are its nodes' own
     chains, gid = [], 0
+    batched = bool(np_state.get("effect_batches"))
     for c, t in zip(program.chains, template["chains"]):
-        if len(c["mixers"]) >= 2:
+        if len(c["mixers"]) >= 2 and batched:
             per_effect = np_state["effect_batches"][gid]
             gid += 1
         else:
-            per_effect = [_node(np_state, p) for p in c["effect_paths"][0]]
+            per_effect = [_stack([_node(np_state, eps[i])
+                                  for eps in c["effect_paths"]])
+                          for i in range(len(c["effect_paths"][0]))]
         chains.append([_like(ti, si, eps) for ti, si, eps in
                        zip(t, per_effect, c["effect_paths"][0])])
     state = {"smoothers": smoothers, "file_batches": file_batches,
@@ -120,12 +130,63 @@ def state_from_jax(np_state, program):
         # ``__batch{gid}``; the port holds one [stages, lanes] per chain
         ages, gid = [], 0
         for c, t in zip(program.chains, template["bypass"]):
-            if len(c["mixers"]) >= 2:
+            if len(c["mixers"]) >= 2 and batched:
                 a = np_state["bypass"][f"__batch{gid}"]
                 gid += 1
             else:
-                a = np.array([[np_state["bypass"][p]]
-                              for p in c["effect_paths"][0]])
+                a = np.array([[np_state["bypass"][eps[i]]
+                               for eps in c["effect_paths"]]
+                              for i in range(len(c["effect_paths"][0]))])
             ages.append(_like(t, a, f"bypass/{c['mixer_paths'][0]}"))
         state["bypass"] = ages
     return state
+
+
+def _lane(tree, k: int):
+    """Lane ``k`` of every leaf of a numpy state tree."""
+    if isinstance(tree, dict):
+        return {key: _lane(v, k) for key, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_lane(v, k) for v in tree]
+        return (type(tree)(*out) if hasattr(tree, "_fields")
+                else type(tree)(out))
+    return np.asarray(tree)[k]
+
+
+def batched_state_from_jax(np_states, batched):
+    """Port states (one per shard) of the port's ``BatchedRenderProgram``
+    ``batched`` equal to the JAX package's stacked lane states
+    ``np_states`` (``jax.device_get`` of its ``BatchedRenderProgram``
+    state, every leaf with a leading lanes axis), built from the same
+    graph description with the same node names.
+
+    Each lane converts as :func:`state_from_jax` converts one program's
+    state, and lane k lands in rows ``k * G .. k * G + G - 1`` of each
+    folded bank of G members (its silence ages in columns of each chain's
+    [stages, lanes * G]).  The port smooths automation once for all lanes,
+    so every lane's smoother state must be equal; a ``ValueError`` says
+    otherwise."""
+    from .graph.engine import tree_leaves, tree_map
+
+    lanes = [state_from_jax(_lane(np_states, k), batched.program)
+             for k in range(batched.lanes)]
+    smoothers = lanes[0]["smoothers"]
+    for k, st in enumerate(lanes[1:], 1):
+        for a, b in zip(tree_leaves(smoothers), tree_leaves(st["smoothers"])):
+            if not torch.equal(a, b):
+                raise ValueError(
+                    f"lane {k}'s smoother state differs from lane 0's: the "
+                    "port's lanes share one smoothing of the automation")
+    per = batched.lanes // len(batched.shards)
+    out = []
+    for j, shard in enumerate(batched.shards):
+        group = lanes[j * per:(j + 1) * per]
+        st = {"smoothers": smoothers}
+        for key in ("file_batches", "pools", "chains"):
+            st[key] = tree_map(lambda *xs: torch.cat(xs),
+                               *(g[key] for g in group))
+        if "bypass" in group[0]:
+            st["bypass"] = [torch.cat(xs, dim=1) for xs in
+                            zip(*(g["bypass"] for g in group))]
+        out.append(tree_map(lambda t: t.to(shard.device), st))
+    return out

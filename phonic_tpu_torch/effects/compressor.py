@@ -24,7 +24,8 @@ import torch.nn.functional as F
 from ..graph.nodes import BuildCtx, Effect
 from ..ops import follower as follower_ops
 from ..ops.envelope import LN10_20, follower_alpha, peak_to_db
-from ..params import FloatParameter, format_ratio
+# format_db is a name of this module in the JAX package too
+from ..params import FloatParameter, format_db, format_ratio  # noqa: F401
 
 THRESHOLD = FloatParameter("thrs", "Threshold", -60.0, 0.0, -12.0, unit="dB", smoothing=None)
 RATIO = FloatParameter("rato", "Ratio", 1.0, 20.0, 8.0, formatter=format_ratio, smoothing=None)

@@ -30,8 +30,10 @@ import torch
 
 from ..graph.nodes import BuildCtx, Effect
 from ..ops import chrono as chrono_ops, filters, lfo as lfo_ops, ring as ring_ops
-from ..params import (
-    EnumParameter, ExponentialScaling, FloatParameter, format_percent,
+# format_degrees is a name of this module in the JAX package too
+from ..params import (  # noqa: F401
+    EnumParameter, ExponentialScaling, FloatParameter, format_degrees,
+    format_percent,
 )
 
 MAX_DELAY_MS = 4000.0

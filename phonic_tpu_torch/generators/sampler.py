@@ -733,24 +733,29 @@ class Sampler(Generator):
 
     def process_granular(self, state, params, voices, smax: float,
                          frame0: int, read, ctx: BuildCtx):
-        """Render a granular sampler, a generator pool of one (leading
-        dimension 1 on the state, the parameters and the voice arrays), with
-        the modulation matrix feeding the 7 granular targets.
+        """Render a granular sampler, a generator pool of one, with the
+        modulation matrix feeding the 7 granular targets.  The state has a
+        leading dimension L, the sampler's instances in a lane-batched
+        program (1 otherwise); the parameters and the voice arrays, shared
+        by the instances, are read from their first row.
 
         The voices' note logic and modulation run once per block over
-        ``[V, n]``.  The grain pools then allocate chunk by chunk (the JAX
+        ``[V, n]``, and the grain pools of every instance over
+        ``[L*V, ...]`` (lane-major).  The grain pools then allocate chunk by chunk (the JAX
         package's hoisted-read formulation, sampler.py:1029-1083): each
         chunk's read positions and weights go into ``[V*POOL, n]`` tensors,
         and since the reads never feed back into allocation, every grain of
         the block is read in ONE ``read`` call afterwards ([V*POOL, n]
-        positions -> [V*POOL, 1, n], the pool's ramp_read), then mixed
-        with each chunk's pans and shaped by the voice AHDSR.
-        ``frame0`` is the block's global start frame.  Returns (new state,
-        audio [1, ch, n])."""
+        positions -> [V*POOL, 1, n], the pool's ramp_read; [L*V*POOL, n]
+        for L instances), then mixed with each chunk's pans and shaped by
+        the voice AHDSR.  ``frame0`` is the block's global start frame.
+        Returns (new state, audio [L, ch, n])."""
         n = ctx.block_frames
         sr = ctx.sample_rate
         nv = self.options.voices
         dev = state["base"].device
+        lanes = state["base"].shape[0]
+        lv = lanes * nv
         f32 = torch.float32
         p = {k: x[0] for k, x in params.items()}  # [n]
         vs = {k: x[0] for k, x in voices.items()}  # [V], [S, T] or 0-d
@@ -812,19 +817,26 @@ class Sampler(Generator):
             direction=p[GRAIN_DIRECTION.id].to(torch.int64),
         )
 
+        def over_lanes(x):  # one instance's [V, ...] -> [L*V, ...]
+            # (a view of x for one instance, a copy for several)
+            return x.expand((lanes,) + x.shape).reshape((-1,) + x.shape[1:])
+        # the per-voice [V, n] values; the per-sample [n] ones broadcast
+        per_sample = {k: over_lanes(x) if x.dim() == 2 else x
+                      for k, x in per_sample.items()}
+
         # --- allocation, chunk by chunk ------------------------------------
         cn = (_GRANULAR_CHUNK if n > _GRANULAR_CHUNK and n % _GRANULAR_CHUNK == 0
               else n)
         alloc = dict(
             n=cn, sr=sr, frames=frames, loop_range=loop_norm,
-            note_start=note_start,
+            note_start=over_lanes(note_start),
             overlap_mode=p[GRAIN_OVERLAP.id][0].to(torch.int64),
             window_table=window_table(dev),
-            seed=self.seed ^ (voice_no * 0x51ED),
+            seed=over_lanes(self.seed ^ (voice_no * 0x51ED)),
             max_triggers=int(math.ceil(100.0 * cn / sr)) + 2,
             max_read_speed=eff_mrs)
-        grains = {k: x[0] for k, x in state["grains"].items()}
-        positions = torch.empty((nv, POOL_SIZE, n), dtype=f32, device=dev)
+        grains = {k: x.flatten(0, 1) for k, x in state["grains"].items()}
+        positions = torch.empty((lv, POOL_SIZE, n), dtype=f32, device=dev)
         weights = torch.empty_like(positions)
         pans = []
         for t0 in range(0, n, cn):
@@ -837,17 +849,17 @@ class Sampler(Generator):
             pans.append(grains["g_pan"])
 
         # --- every grain of the block in one read, then the mix -------------
-        s = read(positions.view(nv * POOL_SIZE, n)).view(nv, POOL_SIZE, n)
+        s = read(positions.view(lv * POOL_SIZE, n)).view(lv, POOL_SIZE, n)
         del positions
         chunks = n // cn
 
-        def by_chunk(x):  # [V, P, n] -> [V, chunks, P, cn]
-            return x.view(nv, POOL_SIZE, chunks, cn).transpose(1, 2)
+        def by_chunk(x):  # [L*V, P, n] -> [L*V, chunks, P, cn]
+            return x.view(lv, POOL_SIZE, chunks, cn).transpose(1, 2)
 
         audio = grain_mix(by_chunk(s), by_chunk(weights),
-                          torch.stack(pans, dim=1))  # [V, chunks, 2, cn]
+                          torch.stack(pans, dim=1))  # [L*V, chunks, 2, cn]
         del s, weights
-        audio = audio.transpose(1, 2).reshape(nv, 2, n)
+        audio = audio.transpose(1, 2).reshape(lv, 2, n)
 
         # voice-level AHDSR after the grain mix (voice.rs:470-486)
         if self.envelope is not None:
@@ -860,11 +872,14 @@ class Sampler(Generator):
             env = torch.where(sel, env_b, env_a * c_on.to(f32)[:, None])
         else:
             env = active.to(f32)
-        mix = (audio * env[:, None, :]).sum(dim=0)
+        mix = (audio * over_lanes(env)[:, None, :]).view(
+            lanes, nv, 2, n).sum(dim=1)
         if ctx.channels == 1:
-            mix = ((mix[0] + mix[1]) * 0.5)[None, :]
+            mix = ((mix[:, 0] + mix[:, 1]) * 0.5)[:, None]
         elif ctx.channels > 2:
-            mix = torch.cat([mix, mix.new_zeros((ctx.channels - 2, n))])
+            mix = torch.cat([mix, mix.new_zeros((lanes, ctx.channels - 2, n))],
+                            dim=1)
         new_state = dict(state)
-        new_state["grains"] = {k: x[None] for k, x in grains.items()}
-        return new_state, mix[None]
+        new_state["grains"] = {k: x.view((lanes, nv) + x.shape[1:])
+                               for k, x in grains.items()}
+        return new_state, mix

@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..graph.nodes import BuildCtx
@@ -39,6 +40,9 @@ from ..params import DecibelScaling, FloatParameter, format_gain, format_pan
 from ..sources.synth import SynthContext, SynthDef
 from .base import Generator, GeneratorPlaybackOptions
 from .sampler import Sampler
+
+# no scheduled stop (the JAX package's name here, as in sources/file.py)
+NEVER = np.iinfo(np.int32).max
 
 VOLUME = FloatParameter("SVOL", "Volume", 1e-6, 15.848932, 1.0,
                         scaling=DecibelScaling(-60.0, 24.0), formatter=format_gain)
@@ -163,8 +167,16 @@ class SynthGenerator(Generator):
                      ctx: BuildCtx):
         """Render the generator (a pool of one: leading dimension 1 on the
         state, the parameters and the voice arrays), its V voices in one
-        batched SynthDef call.  Returns (new state, audio [1, ch, n])."""
+        batched SynthDef call.  Returns (new state, audio [1, ch, n]).
+
+        In a lane-batched program the pool holds L instances of the
+        generator (leading dimension L): their parameters and voice arrays
+        are the same, so the voices' note logic runs once over [V, n] and
+        only the SynthDef, whose state is each instance's own, runs over
+        L*V voices.  Returns audio [L, ch, n]."""
+        from ..graph.engine import tree_map
         n = ctx.block_frames
+        lanes = len(params[VOLUME.id])
         sr = ctx.sample_rate
         p = {k: x[0] for k, x in params.items()}  # [n]
         vs = {k: x[0] for k, x in inputs.items()}  # [V] or [V, K]
@@ -230,31 +242,29 @@ class SynthGenerator(Generator):
             m = apply_matrix(src, vs["_mod_amt"], vs["_mod_bip"],
                              source_polarity(self.mod_config))  # [V, T, n]
             mods = {t: m[:, k] for k, t in enumerate(self.mod_config.targets)}
+        def per_lane(x):  # [V, ...] -> [L*V, ...]
+            return (x if lanes == 1
+                    else x.repeat((lanes,) + (1,) * (x.dim() - 1)))
+
         sctx = SynthContext(
-            freq=freq, gate=gate, velocity=vel, age=age, release_age=rel,
+            freq=per_lane(freq), gate=per_lane(gate), velocity=per_lane(vel),
+            age=per_lane(age), release_age=per_lane(rel),
             sample_rate=sr, block_frames=n,
-            params={q.id: p[q.id] for q in self.synth.params}, mods=mods)
-        synth_state, audio = self.synth.render(_first(state["synth"]), sctx)
+            params={q.id: p[q.id] for q in self.synth.params},
+            mods={t: per_lane(m) for t, m in mods.items()})
+        synth_state, audio = self.synth.render(
+            tree_map(lambda a: a.flatten(0, 1), state["synth"]), sctx)
         if audio.dim() == 2:  # mono: every output channel
             audio = audio[:, None, :].expand(-1, ctx.channels, -1)
+        audio = audio.unflatten(0, (lanes, nv))  # [L, V, ch, n]
         g = p[VOLUME.id] * vel * active.to(f32)
         audio = audio * g[:, None, :]
         if ctx.channels >= 2:
             left, right = panning_factors(torch.clamp(p[PANNING.id] + npan,
                                                       -1.0, 1.0))
-            audio = torch.cat([audio[:, :1] * left[:, None],
-                               audio[:, 1:2] * right[:, None], audio[:, 2:]],
-                              dim=1)
-        return ({"synth": _lead(synth_state)},
-                torch.sum(audio, dim=0, keepdim=True))
-
-
-def _first(tree):
-    """A pool-of-one state without its leading pool dimension."""
-    from ..graph.engine import tree_map
-    return tree_map(lambda a: a[0], tree)
-
-
-def _lead(tree):
-    from ..graph.engine import tree_map
-    return tree_map(lambda a: a[None], tree)
+            audio = torch.cat([audio[:, :, :1] * left[:, None],
+                               audio[:, :, 1:2] * right[:, None],
+                               audio[:, :, 2:]], dim=2)
+        return ({"synth": tree_map(lambda a: a.unflatten(0, (lanes, nv)),
+                                   synth_state)},
+                torch.sum(audio, dim=1))

@@ -11,6 +11,12 @@ tensors, so any of them may change between blocks.
 
 The JAX package vmaps a one-lane function over the bank; here the lane
 dimension is written out: positions and parameters are ``[S, n]``.
+
+A bank built with ``lanes=L`` holds L independent instances of its
+sources (lane-major: row ``l * S + i`` is source i of instance l), for the
+lane-batched programs of ``parallel/mesh.py``: the buffers and the read
+table are not repeated, only the read map, the per-lane metadata and the
+running state.
 """
 
 from __future__ import annotations
@@ -45,10 +51,12 @@ def group_key(src: FileSource):
 class FileBatch:
     """Static per-group data (on the program's device) + the renderer."""
 
-    def __init__(self, sources: list[FileSource], paths: list[str], ctx):
+    def __init__(self, sources: list[FileSource], paths: list[str], ctx,
+                 lanes: int = 1):
         self.sources = sources
         self.paths = paths
         self.ctx = ctx
+        self.lanes = lanes
         s0 = sources[0]
         self.loop_kind = "none" if s0.loop_range is None else s0.loop_mode
         self.endless = s0.options.repeat is None
@@ -63,12 +71,14 @@ class FileBatch:
             bufs[i, :, : s.buffer.frames + 1] = np.asarray(s.buffer.data)
         sr = ctx.sample_rate
         self.buffers = torch.as_tensor(bufs, device=dev)
-        self.smap = torch.arange(len(sources), dtype=torch.int32, device=dev)
+        self.smap = torch.arange(len(sources), dtype=torch.int32,
+                                 device=dev).repeat(lanes)
 
         def lane(fn, dtype):
-            """Per-lane metadata as [S, 1], to broadcast against [S, n]."""
-            return torch.tensor([[fn(s)] for s in sources], dtype=dtype,
-                                device=dev)
+            """Per-lane metadata as [L*S, 1], to broadcast against
+            [L*S, n]."""
+            return torch.tensor([[fn(s)] for s in sources] * lanes,
+                                dtype=dtype, device=dev)
 
         def fade(secs):
             return _host_fade_log1m(secs, sr) if secs > 0 else 0.0
@@ -97,7 +107,7 @@ class FileBatch:
     def init_state(self):
         """Running state: the compensated position ``base + frac + frac_lo``
         per lane."""
-        s, dev = len(self.sources), self.ctx.device
+        s, dev = len(self.sources) * self.lanes, self.ctx.device
         return {
             "base": torch.zeros(s, dtype=torch.int32, device=dev),
             "frac": torch.zeros(s, dtype=torch.float32, device=dev),
@@ -225,12 +235,16 @@ class FileBatch:
                kill_at, seek_flag, seek_pos):
         """Parameters ``[S, n]``; stop/kill frames and seeks ``[S]``.
         Returns (new_state, out [S, ch, n])."""
+        n = self.ctx.block_frames
         smax = 2.0 ** max(s.speed_bucket(self.ctx.sample_rate)
                           for s in self.sources)
         pos, mask, new_state = self.lane_pos(state, frame0, speed, kill_at,
                                              seek_flag, seek_pos, smax)
         if self.sinc is not None:
-            audio = rs.sinc_read(self.buffers, pos, self.sinc)
+            # the instances' positions [L, S, n] over the bank's buffers
+            audio = rs.sinc_read(
+                self.buffers.expand((self.lanes,) + self.buffers.shape),
+                pos.view(self.lanes, -1, n), self.sinc).flatten(0, 1)
         else:
             audio = rampread.ramp_read(self.buffers, self.smap, pos)
         return new_state, self.lane_post(audio, mask, frame0, volume,
@@ -271,12 +285,20 @@ class LeafBatch:
     in the bank's state under ``_statics``, as in the JAX package.
 
     The block's lowered inputs go to the device as one array
-    (:meth:`stack`)."""
+    (:meth:`stack`).
 
-    def __init__(self, nodes: list, paths: list[str], ctx):
+    With ``lanes=L`` the bank holds L independent instances of its nodes
+    (lane-major, as :class:`FileBatch`): the state, the statics and the
+    read map have L*G rows, the read table is not repeated, and the
+    lowered arrays, the same for every instance, are copied to the device
+    once and repeated there (:meth:`voices`).  Every pool reads all its
+    instances in one ``ramp_read`` per block."""
+
+    def __init__(self, nodes: list, paths: list[str], ctx, lanes: int = 1):
         self.nodes = nodes
         self.paths = paths
         self.ctx = ctx
+        self.lanes = lanes
         self.proto = nodes[0]
         dev = ctx.device
         self.table = self.smap = None
@@ -289,16 +311,18 @@ class LeafBatch:
             self.table = torch.as_tensor(table, device=dev)
             self.smap = torch.repeat_interleave(
                 torch.arange(len(nodes), dtype=torch.int32, device=dev),
-                torch.tensor(lanes, device=dev), output_size=sum(lanes))
+                torch.tensor(lanes, device=dev),
+                output_size=sum(lanes)).repeat(self.lanes)
         rows = [getattr(s, "source_batch_statics", lambda c: {})(ctx)
-                for s in nodes]
+                for s in nodes] * self.lanes
         self.statics = {k: torch.as_tensor(np.stack([r[k] for r in rows]),
                                            device=dev) for k in rows[0]}
 
     def init_state(self):
-        """Each node's state, stacked: [G, ...] (a sampler's [G, V, ...]),
-        and the lanes' statics under ``_statics``."""
-        st = stack_states([s.init_state(self.ctx) for s in self.nodes])
+        """Each node's state, stacked: [L*G, ...] (a sampler's
+        [L*G, V, ...]), and the lanes' statics under ``_statics``."""
+        st = stack_states([s.init_state(self.ctx) for s in self.nodes]
+                          * self.lanes)
         if self.statics:
             st["_statics"] = dict(self.statics)
         return st
@@ -336,20 +360,22 @@ class LeafBatch:
                        for k, a in stacked.items())
         return flat, layout, smax, live
 
-    @staticmethod
-    def voices(flat, layout) -> dict:
+    def voices(self, flat, layout) -> dict:
         """The flat int32 tensor of :meth:`stack` on the device -> the
-        lowered arrays, as views of it."""
+        lowered arrays, as views of it ([G, ...] each), repeated over the
+        bank's instances ([L*G, ...]) when it holds several."""
         out, off = {}, 0
         for k, shape, is_float in layout:
             size = int(np.prod(shape))
             t = flat[off:off + size].view(shape)
-            out[k] = t.view(torch.float32) if is_float else t
+            t = t.view(torch.float32) if is_float else t
+            out[k] = (t if self.lanes == 1
+                      else t.repeat((self.lanes,) + (1,) * (t.dim() - 1)))
             off += size
         return out
 
     def read(self, positions):
-        """Every voice lane's read: [G*V, n] -> [G*V, ch, n]."""
+        """Every voice lane's read: [L*G*V, n] -> [L*G*V, ch, n]."""
         return rampread.ramp_read(self.table, self.smap, positions)
 
     def render(self, state, params, voices: dict, smax, live: dict,
@@ -371,3 +397,6 @@ class LeafBatch:
                                                frame0, self.read, self.ctx)
         return self.proto.process(state, params, voices, smax, live,
                                   self.read, self.ctx)
+
+
+SamplerBatch = LeafBatch  # the JAX package's earlier name for it

@@ -20,6 +20,17 @@ blocks on the device; here ``render`` is a host loop over blocks and
 nothing is compiled, so the JAX package's recompile guard
 (``jit_cache_size``) has no counterpart.
 
+A program built with ``lanes=L`` renders L independent instances of the
+graph in every step, ``audio[L, channels, block]`` (the lane-batched
+programs of ``parallel/mesh.py``).  The lanes fold into the leading
+dimension of every bank: a file bank of S sources reads L*S rows, a pool
+of G nodes holds L*G, a chain of G mixers runs L*G, each lane-major (row
+``l * G + i`` is member i of instance l).  Automation is shared: a block
+lowers and uploads one instance's inputs, smooths each parameter once,
+and each bank gathers its parameter rows for all lanes in the same
+``index_select``.  So a block makes the launches of one instance, each
+over L times the rows.
+
 The live path (the Player) steps with :meth:`RenderProgram.step_packed`:
 every host array a block needs travels in one pinned buffer, one
 asynchronous copy per block, and the step reads views of it, so nothing in
@@ -181,7 +192,15 @@ class RenderProgram:
     """A render program for one graph topology on one device."""
 
     def __init__(self, root: Mixer, config: EngineConfig = DEFAULT_CONFIG,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 lanes: Optional[int] = None):
+        """``lanes``: None renders one instance of the graph, ``audio[ch,
+        n]``; an int renders that many independent instances folded into
+        every bank, ``audio[lanes, ch, n]``."""
+        if lanes is not None and lanes < 1:
+            raise ValueError(f"lanes must be >= 1, got {lanes}")
+        self.lanes = lanes or 1
+        self._lane_axis = lanes is not None
         self.root = root
         # freeze the topology now: a program never sees nodes it didn't index
         self._frozen = _freeze_mixer(root)
@@ -272,7 +291,8 @@ class RenderProgram:
         if len(keys) != 1:
             raise ValueError(f"{pid}: lanes smooth differently ({keys})")
         rows = [self._param_row[(p, pid)][1] for p in paths]
-        return keys.pop(), torch.tensor(rows, dtype=torch.int64,
+        # every instance reads the same rows: the lanes share the smoothing
+        return keys.pop(), torch.tensor(rows * self.lanes, dtype=torch.int64,
                                         device=self.device)
 
     def _build_source_batches(self):
@@ -306,7 +326,8 @@ class RenderProgram:
             self._bank_lane.update((p, (len(self.file_batches), i))
                                    for i, p in enumerate(paths))
             self.file_batches.append(
-                FileBatch([self.nodes[p] for p in paths], paths, self.ctx))
+                FileBatch([self.nodes[p] for p in paths], paths, self.ctx,
+                          self.lanes))
             self._batch_rows.append(
                 {pid: self._rows(paths, pid) for pid in ("VOLU", "PANN", "SPED")})
         self.pools: list[LeafBatch] = []
@@ -314,7 +335,8 @@ class RenderProgram:
         for paths in pools.values():
             self._pool_lane.update((p, (len(self.pools), i))
                                    for i, p in enumerate(paths))
-            pool = LeafBatch([self.nodes[p] for p in paths], paths, self.ctx)
+            pool = LeafBatch([self.nodes[p] for p in paths], paths, self.ctx,
+                             self.lanes)
             self.pools.append(pool)
             self._pool_rows.append(
                 {p.id: self._rows(paths, p.id) for p in pool.proto.PARAMS})
@@ -327,7 +349,8 @@ class RenderProgram:
         mixer with effects is a chain of one lane.
 
         ``self.chains[cid]`` holds the lane mixers, their paths and effect
-        lists, and under auto-bypass each (stage, lane)'s silence limit;
+        lists, and under auto-bypass each (stage, lane)'s silence limit
+        ([stages, L*G]);
         ``self._chain_of`` maps a mixer path to its chain and
         ``self._eff_loc`` an effect path to its (chain, stage, lane)."""
         self.chains: list[dict] = []
@@ -354,7 +377,8 @@ class RenderProgram:
                 sr = self.ctx.sample_rate
                 chain["limits"] = torch.tensor(
                     [[effs[i].max_tail_frames(self.ctx) + 2 * sr
-                      for effs in effects] for i in range(len(effects[0]))],
+                      for effs in effects] * self.lanes
+                     for i in range(len(effects[0]))],
                     dtype=torch.int32, device=self.device)
             self.chains.append(chain)
             for p in paths:
@@ -460,6 +484,10 @@ class RenderProgram:
         the same: its mixer's chain up to it holds the same effects;
         every other age resets to 0 (recently active), so a rebuild never
         freezes a still-ringing tail.  Returns the new state."""
+        if self.lanes != 1 or old.lanes != 1:
+            raise NotImplementedError(
+                "adopt carries the state of single-instance programs; a "
+                "lane-batched program starts from init_state")
         for key, tl in old.timelines.items():
             if key in self.timelines:
                 self.timelines[key] = tl
@@ -597,7 +625,8 @@ class RenderProgram:
             else:
                 smoothers[key] = v  # stepped: carry the current target
         chains = [
-            [stack_states([effs[i].init_state(self.ctx) for effs in c["effects"]])
+            [stack_states([effs[i].init_state(self.ctx) for effs in c["effects"]]
+                          * self.lanes)
              for i in range(len(c["effects"][0]))]
             for c in self.chains]
         st = {"smoothers": smoothers,
@@ -605,12 +634,26 @@ class RenderProgram:
               "pools": [p.init_state() for p in self.pools],
               "chains": chains}
         if self.config.auto_bypass:
-            # one silence age per (stage, lane) of each chain, [E, G]:
+            # one silence age per (stage, lane) of each chain, [E, L*G]:
             # every effect starts bypassed until audio arrives
             st["bypass"] = [torch.full(c["limits"].shape, AGE_MAX,
                                        dtype=torch.int32, device=dev)
                             for c in self.chains]
         return st
+
+    def _share_control_from(self, other: "RenderProgram"):
+        """Lower blocks with ``other``'s control state (timelines, stop /
+        kill schedules): a lane-batched twin of a program keeps taking the
+        automation scheduled on the program.  Both programs must be built
+        from the same root."""
+        if other.root is not self.root:
+            raise ValueError("control sharing requires the same graph root")
+        self.timelines = other.timelines
+        self.stop_frames = other.stop_frames
+        self.kill_frames = other.kill_frames
+        for path, node in self.nodes.items():
+            node._timelines = {p.id: self.timelines[(path, p.id)]
+                               for p in node.PARAMS}
 
     def block_inputs(self, block_index: int):
         """Host-side lowering of one block's events (numpy)."""
@@ -630,6 +673,44 @@ class RenderProgram:
                  for path in self.source_paths}
         return {"frame0": start, "params": params, "stops": stops,
                 "extra": extra}
+
+    def stacked_inputs(self, num_blocks: int, start_block: int = 0):
+        """The inputs of blocks ``start_block .. start_block + num_blocks -
+        1``, stacked along a leading block axis: ``frame0`` [blocks], each
+        parameter group's (times, values, ramps) [blocks, P, K], each
+        source's (stop, kill) frames [blocks], and ``extra``, the nodes'
+        own lowering, as a list with one dict per block (its arrays may
+        change shape from block to block).  The timelines lower in
+        O(events) (``ParamTimeline.lower_all``); :meth:`block_of` gives
+        block i's inputs, equal to :meth:`block_inputs` of that block."""
+        n = self.ctx.block_frames
+        end = start_block + num_blocks
+        params = {}
+        for key, pps in self._param_groups.items():
+            lowered = [self.timelines[pp].lower_all(end, n, self.ctx.max_events)
+                       for pp in pps]
+            params[key] = tuple(np.stack([a[start_block:] for a in x], axis=1)
+                                for x in zip(*lowered))
+        stops = {path: (np.full(num_blocks, self.stop_frames[path], np.int64),
+                        np.full(num_blocks, self.kill_frames[path], np.int64))
+                 for path in self.source_paths}
+        extra = []
+        for b in range(start_block, end):
+            extra.append({path: e for path, node in self.nodes.items()
+                          if (e := node.lower_block_inputs(b * n, n))})
+        return {"frame0": np.arange(start_block, end, dtype=np.int64) * n,
+                "params": params, "stops": stops, "extra": extra}
+
+    @staticmethod
+    def block_of(stacked, i: int):
+        """Block ``i`` of :meth:`stacked_inputs` as :meth:`block_inputs`
+        gives it."""
+        return {"frame0": int(stacked["frame0"][i]),
+                "params": {k: tuple(a[i] for a in v)
+                           for k, v in stacked["params"].items()},
+                "stops": {p: (int(s[i]), int(k[i]))
+                          for p, (s, k) in stacked["stops"].items()},
+                "extra": stacked["extra"][i]}
 
     # ------------------------------------------------------------------
     # the arrays a block copies to the device
@@ -653,7 +734,8 @@ class RenderProgram:
         extra = inputs.get("extra", {})
         for bi, batch in enumerate(self.file_batches):
             def lanes(fn, dtype):
-                return np.array([fn(p) for p in batch.paths], dtype)
+                return np.array([fn(p) for p in batch.paths] * self.lanes,
+                                dtype)
 
             arrays[f"b{bi}.stop"] = lanes(lambda p: inputs["stops"][p][0],
                                           np.int64)
@@ -740,10 +822,11 @@ class RenderProgram:
 
     def step(self, state, inputs):
         """Render one block: (state, inputs) -> (state, audio[ch, n]) on the
-        program's device; with ``meter_mixers`` the output is (audio,
-        :class:`MixerLevels`).  Each host array is copied to the device on
-        its own; :meth:`step_packed` copies them in one go and gives the
-        same numbers."""
+        program's device (``audio[lanes, ch, n]`` for a program built with
+        ``lanes``); with ``meter_mixers`` the output is (audio,
+        :class:`MixerLevels`, its levels ``[lanes, ch]`` likewise).  Each
+        host array is copied to the device on its own; :meth:`step_packed`
+        copies them in one go and gives the same numbers."""
         arrays, host = self._host_arrays(inputs)
         dev = {k: torch.as_tensor(a, device=self.device)
                for k, a in arrays.items()}
@@ -758,6 +841,7 @@ class RenderProgram:
     def _step(self, state, inputs, host, dev):
         ctx = self.ctx
         n = ctx.block_frames
+        lanes = self.lanes
         frame0 = int(inputs["frame0"])
         extra = inputs.get("extra", {})
         new_smoothers, values = self._smooth_all_params(
@@ -768,6 +852,7 @@ class RenderProgram:
             return values[key].index_select(0, idx)
 
         # file-source lane banks render first; render_pre consumes their rows
+        # (each source's [L, ch, n]: its rows of every instance)
         source_out: dict[str, torch.Tensor] = {}
         new_batches = []
         for bi, batch in enumerate(self.file_batches):
@@ -778,8 +863,9 @@ class RenderProgram:
                 dev[f"b{bi}.kill"], dev[f"b{bi}.seek_flag"],
                 dev[f"b{bi}.seek_pos"])
             new_batches.append(nb_state)
+            out = out.view((lanes, len(batch.paths)) + out.shape[1:])
             for i, p in enumerate(batch.paths):
-                source_out[p] = out[i]
+                source_out[p] = out[:, i]
         new_pools = []
         for pi, pool in enumerate(self.pools):
             params = {pid: rows(sel) for pid, sel in self._pool_rows[pi].items()}
@@ -788,15 +874,16 @@ class RenderProgram:
                 state["pools"][pi], params, pool.voices(dev.get(f"q{pi}"), layout),
                 smax, live, frame0)
             new_pools.append(pool_state)
+            out = out.view((lanes, len(pool.paths)) + out.shape[1:])
             for i, p in enumerate(pool.paths):
-                source_out[p] = out[i]
+                source_out[p] = out[:, i]
 
         new_chains: list = [None] * len(self.chains)
         new_ages: list = [None] * len(self.chains)
         metered: list = []  # (mixer path, its post-effects signal)
 
         def run_chain(cid, x):
-            """Apply chain ``cid`` to x [G, ch, n]: effect i of every lane
+            """Apply chain ``cid`` to x [L*G, ch, n]: effect i of every lane
             runs as one batched call.
 
             Under auto-bypass each (stage, lane) keeps a silence age: a stage
@@ -814,7 +901,7 @@ class RenderProgram:
                 pvals = {pid: rows(sel) for pid, sel in c["params"][i].items()}
                 dicts = [extra.get(eps[i], {}) for eps in c["effect_paths"]]
                 for k in sorted(set().union(*dicts)):
-                    pvals[k] = np.stack([d.get(k, 0) for d in dicts])
+                    pvals[k] = np.stack([d.get(k, 0) for d in dicts] * lanes)
                 st0 = state["chains"][cid][i]
                 if bypass:
                     silent = torch.amax(torch.abs(x), dim=(1, 2)) <= SILENCE
@@ -833,8 +920,9 @@ class RenderProgram:
             return x
 
         def render_pre(m: _FrozenMixer, me: str):
-            """Children and sources summed, BEFORE m's own effect chain."""
-            acc = torch.zeros((ctx.channels, ctx.block_frames),
+            """Children and sources summed, BEFORE m's own effect chain:
+            [L, ch, n]."""
+            acc = torch.zeros((lanes, ctx.channels, ctx.block_frames),
                               dtype=self.config.dtype, device=self.device)
             done = set()
             for child in m.children:
@@ -849,11 +937,13 @@ class RenderProgram:
                     continue
                 done.add(cid)
                 c = self.chains[cid]
+                # [L, G, ch, n] -> the chain's lane-major [L*G, ch, n]
                 xs = torch.stack([render_pre(m2, p2) for m2, p2 in
-                                  zip(c["mixers"], c["mixer_paths"])])
-                ys = run_chain(cid, xs)
-                metered.extend(zip(c["mixer_paths"], ys))
-                acc = acc + torch.sum(ys, dim=0)
+                                  zip(c["mixers"], c["mixer_paths"])], dim=1)
+                ys = run_chain(cid, xs.flatten(0, 1)).unflatten(0, xs.shape[:2])
+                metered.extend((p, ys[:, g])
+                               for g, p in enumerate(c["mixer_paths"]))
+                acc = acc + torch.sum(ys, dim=1)
             for s in m.sources:
                 acc = acc + source_out[f"{me}/{s.name}"]
             return acc
@@ -861,8 +951,11 @@ class RenderProgram:
         me = self._frozen.name
         audio = render_pre(self._frozen, me)
         if me in self._chain_of:
-            audio = run_chain(self._chain_of[me], audio[None])[0]
+            audio = run_chain(self._chain_of[me], audio)
         metered.append((me, audio))
+        if not self._lane_axis:
+            audio = audio[0]
+            metered = [(p, y[0]) for p, y in metered]
         new_state = {"smoothers": new_smoothers, "file_batches": new_batches,
                      "pools": new_pools, "chains": new_chains}
         if self.config.auto_bypass:
@@ -906,5 +999,5 @@ class RenderProgram:
         for b in range(num_blocks):
             state, y = self.step(state, self.block_inputs(b))
             chunks.append(y)
-        audio = torch.cat(chunks, dim=-1)[:, :duration_frames]
+        audio = torch.cat(chunks, dim=-1)[..., :duration_frames]
         return audio.to(torch.float32).cpu().numpy()

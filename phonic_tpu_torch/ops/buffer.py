@@ -26,3 +26,21 @@ def remap_channels(x: torch.Tensor, out_channels: int) -> torch.Tensor:
     if pad > 0:
         parts.append(x.new_zeros(x.shape[:-2] + (pad, x.shape[-1])))
     return torch.cat(parts, dim=-2)
+
+
+def interleave(x: torch.Tensor) -> torch.Tensor:
+    """[channels, frames] -> [frames * channels] interleaved."""
+    return x.T.reshape(-1)
+
+
+def deinterleave(x: torch.Tensor, channels: int) -> torch.Tensor:
+    """[frames * channels] interleaved -> [channels, frames]."""
+    return x.reshape(-1, channels).T
+
+
+def peak_level(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return torch.amax(torch.abs(x), dim=axis)
+
+
+def rms_level(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return torch.sqrt(torch.mean(torch.square(x), dim=axis))

@@ -13,6 +13,7 @@ import torch
 
 _SQRT2 = math.sqrt(2.0)
 _LIN_TO_DB = 20.0 / math.log(10.0)
+_DB_TO_LIN = math.log(10.0) / 20.0
 # the floor of the dB scale (reference: src/utils.rs:25-36)
 MINUS_INF_DB = -200.0
 
@@ -37,3 +38,26 @@ def panning_factors(pan: torch.Tensor):
     left = torch.sqrt(1.0 - normalized) * _SQRT2
     right = torch.sqrt(normalized) * _SQRT2
     return left, right
+
+
+def db_to_linear(value) -> torch.Tensor:
+    """dB -> linear gain factor, float32.  <= -200 dB maps to 0; exactly
+    0 dB maps to exactly 1.0 (reference: src/utils.rs:40-51)."""
+    value = torch.as_tensor(value, dtype=torch.float32)
+    lin = torch.exp(value * _DB_TO_LIN)
+    lin = torch.where(value > MINUS_INF_DB, lin, 0.0)
+    return torch.where(value == 0.0, 1.0, lin)
+
+
+def pitch_from_note(midi_note) -> torch.Tensor:
+    """MIDI note -> Hz, equal temperament, A4 (note 69) = 440 Hz
+    (reference: src/utils.rs:75-79)."""
+    note = torch.as_tensor(midi_note, dtype=torch.float32)
+    return 440.0 * torch.exp2((note - 69.0) / 12.0)
+
+
+def speed_from_note(midi_note) -> torch.Tensor:
+    """MIDI note -> playback speed relative to middle C (note 60)
+    (reference: src/utils.rs:67-71)."""
+    note = torch.as_tensor(midi_note, dtype=torch.float32)
+    return torch.exp2((note - 60.0) / 12.0)

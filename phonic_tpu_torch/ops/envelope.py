@@ -44,3 +44,21 @@ def follower_alpha(time_secs, sample_rate: int, dtype=torch.float32):
     return torch.where(
         t > 0.0, -torch.expm1(-1.0 / torch.clamp(t * float(sample_rate), min=1e-9)),
         torch.ones_like(t))
+
+
+def follower_block(y0, x, attack_coef, release_coef, axis: int = -1):
+    """Run the attack / release follower ``y = x + coef * (y - x)``, coef
+    the attack one where ``x > y``, over a block, one sample at a time.
+    x: samples along ``axis`` with any leading batch dims; y0: state shaped
+    like x without the sample axis.  Returns (y_end, y)."""
+    x = torch.as_tensor(x)
+    xm = x.movedim(axis, 0)
+    attack = torch.as_tensor(attack_coef, dtype=x.dtype)
+    release = torch.as_tensor(release_coef, dtype=x.dtype)
+    y = torch.as_tensor(y0, dtype=x.dtype).expand(xm.shape[1:]).clone()
+    ys = torch.empty_like(xm)
+    for n in range(xm.shape[0]):
+        coef = torch.where(xm[n] > y, attack, release)
+        y = xm[n] + coef * (y - xm[n])
+        ys[n] = y
+    return y, ys.movedim(0, axis)

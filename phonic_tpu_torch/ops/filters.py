@@ -41,6 +41,11 @@ BELL = "bell"
 LOWSHELF = "lowshelf"
 HIGHSHELF = "highshelf"
 
+BIQUAD_TYPES = (
+    LOWPASS, HIGHPASS, BANDPASS, NOTCH, PEAK, ALLPASS, BELL, LOWSHELF, HIGHSHELF,
+)
+SVF_TYPES = (LOWPASS, HIGHPASS, BANDPASS)
+
 
 class TptCoefficients(NamedTuple):
     """a1..a3 integrator gains + m0..m2 output mix (broadcastable against

@@ -21,6 +21,14 @@ import torch
 from . import consts
 
 # waveform ids are indices into this tuple
+SINE = 0
+TRIANGLE = 1
+RAMP_UP = 2
+RAMP_DOWN = 3
+SQUARE = 4
+RANDOM = 5
+SMOOTH_RANDOM = 6
+
 WAVEFORM_NAMES = (
     "Sine", "Triangle", "Ramp Up", "Ramp Down", "Square", "Random", "Smooth Random",
 )

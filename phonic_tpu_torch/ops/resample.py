@@ -160,3 +160,31 @@ def loop_fold(positions: torch.Tensor, loop_start, loop_end,
     else:
         raise ValueError(f"unknown loop mode {mode!r}")
     return torch.where(p < start, p, folded)
+
+
+def catmull_rom_read(buf: torch.Tensor, positions: torch.Tensor,
+                     fill: float = 0.0) -> torch.Tensor:
+    """Alias: the granular engine's 4-point read
+    (src/generator/sampler/granular.rs:899-933) uses the same Hermite
+    x-form."""
+    return hermite_read(buf, positions, fill)
+
+
+def resample_positions(n_out: int, ratio, pos0=0.0) -> torch.Tensor:
+    """Source positions for a fixed-ratio conversion: pos[j] = pos0 +
+    j*ratio, float32."""
+    ratio = torch.as_tensor(ratio, dtype=torch.float32)
+    return (torch.as_tensor(pos0, dtype=torch.float32)
+            + torch.arange(n_out, dtype=torch.float32,
+                           device=ratio.device) * ratio)
+
+
+def glide_positions(steps, pos0=0.0):
+    """Source positions for speed-glided playback: exclusive cumsum of
+    per-output-sample steps (step = speed * in_rate / out_rate).  Returns
+    (positions[n], end_pos), float32."""
+    steps = torch.as_tensor(steps, dtype=torch.float32)
+    csum = torch.cumsum(steps, dim=0)
+    pos0 = torch.as_tensor(pos0, dtype=torch.float32)
+    pos = pos0 + torch.cat([torch.zeros_like(csum[:1]), csum[:-1]])
+    return pos, pos0 + csum[-1]

@@ -225,6 +225,19 @@ def linear_recurrence(a, b, y0, axis: int = -1) -> torch.Tensor:
     return y.movedim(-1, axis)
 
 
+def linear_recurrence_reference(a, b, y0, axis: int = -1) -> torch.Tensor:
+    """Sequential version of :func:`linear_recurrence`, one sample at a
+    time: the correctness oracle for tests."""
+    a, b = torch.broadcast_tensors(torch.as_tensor(a), torch.as_tensor(b))
+    a, b = a.movedim(axis, -1), b.movedim(axis, -1)
+    y = torch.as_tensor(y0, dtype=b.dtype).expand(b.shape[:-1]).clone()
+    out = torch.empty_like(b)
+    for n in range(b.shape[-1]):
+        y = a[..., n] * y + b[..., n]
+        out[..., n] = y
+    return out.movedim(-1, axis)
+
+
 def linear_recurrence_2(a11, a12, a21, a22, b1, b2, s0_1, s0_2,
                         axis: int = -1):
     """Solve the 2-vector recurrence ``s[n] = A[n] s[n-1] + b[n]``.

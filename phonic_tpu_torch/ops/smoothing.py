@@ -40,6 +40,16 @@ class SegmentEvents(NamedTuple):
     live: int
 
 
+def no_events(max_events: int, block_frames: int,
+              device="cpu") -> SegmentEvents:
+    """A row without events: every slot past the block."""
+    return SegmentEvents(
+        times=torch.full((max_events,), block_frames, dtype=torch.int32,
+                         device=device),
+        values=torch.zeros((max_events,), dtype=torch.float32, device=device),
+        live=1)
+
+
 def live_segments(times: np.ndarray, n: int) -> int:
     """Segments that can start inside the block: 1 + the most valid events
     of any row of the host-lowered ``[P, K]`` event times."""

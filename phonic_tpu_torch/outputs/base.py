@@ -2,12 +2,13 @@
 
 Behavioural spec: reference src/output.rs — `OutputDevice` with
 channel_count / sample_rate / sample_position / volume / pause / resume /
-play / stop / close.
+play / stop / close; `default_output_device` selected by availability
+(reference picks CPAL, WAV or Web by feature flags, src/output.rs:23-27).
 
 Devices consume rendered blocks: the device *receives* planar blocks
-instead of pulling inside an OS callback.  The realtime and web devices,
-and ``default_output_device`` which picks among them, are not ported yet
-(``outputs/rt.py``, ``outputs/web.py``); the null and WAV devices are.
+instead of pulling inside an OS callback; the native bridge (outputs/rt.py
++ csrc/ringbuf.cpp) restores pull semantics at the hardware edge with a
+lock-free ring buffer.
 """
 
 from __future__ import annotations
@@ -84,3 +85,17 @@ class OutputDevice(abc.ABC):
     @abc.abstractmethod
     def close(self) -> None: ...
 
+
+
+def default_output_device(sample_rate: int = 48000, channels: int = 2,
+                          path=None) -> OutputDevice:
+    """DefaultOutputDevice analog: the realtime native device when its
+    backend is available, else WAV (when a path is given), else null."""
+    from .rt import RtOutput, rt_available
+    if rt_available():
+        return RtOutput(sample_rate, channels)
+    if path is not None:
+        from .wav_out import WavOutput
+        return WavOutput(path, sample_rate, channels)
+    from .null import NullOutput
+    return NullOutput(sample_rate, channels)

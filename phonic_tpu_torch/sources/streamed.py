@@ -43,7 +43,7 @@ from ..ops import resample as rs
 from ..ops.buffer import remap_channels
 from ..ops.convert import panning_factors
 from ..params import DecibelScaling, FloatParameter, format_gain, format_pan
-from .file import FilePlaybackOptions, _host_fade_log1m
+from .file import NEVER, FilePlaybackOptions, _host_fade_log1m  # noqa: F401
 
 VOLUME = FloatParameter("VOLU", "Volume", 0.0, 4.0, 1.0,
                         scaling=DecibelScaling(-60.0, 12.0), formatter=format_gain)

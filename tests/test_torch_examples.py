@@ -1,0 +1,198 @@
+"""The port's examples (phonic_tpu_torch/examples/) render offline (-o) on
+the CPU and are held against the JAX package's examples.
+
+* play_sequence, play_synth, play_graph: the fingerprint of
+  tests/test_golden_examples.py (per-4096-block stereo RMS, rounded to 4
+  decimals) equals tests/goldens/examples.json's: the same frame count,
+  each entry within one step of the rounding (1e-4).
+* play_custom and play_grains do not reproduce their goldens to 1e-4
+  through the port: the JAX package sums phases in float32 (an oscillator's
+  phase, a grain pool's trigger phase and playhead), the port in float64,
+  rounded once.  Each is held to its golden at the bound stated at its
+  entry below, and to 1e-4 against the JAX example rendered in the same
+  test with those sums in float64 (``ATTRIBUTED``, in a subprocess): the
+  attributed JAX render misses the golden by the same amount as the port,
+  so the sums are the whole gap.
+* play_file: its golden was rendered from an asset this checkout lacks;
+  it is held against the JAX example rendered in the same test, the same
+  frame count and -90 dB of peak.
+* play_device, play_web and play_interactive --selftest render to their
+  expected lengths.
+"""
+
+import json
+import os
+import runpy
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from phonic_tpu_torch.io.wav import read_wav
+
+ROOT = Path(__file__).resolve().parent.parent
+GOLDEN = Path(__file__).resolve().parent / "goldens" / "examples.json"
+SR = 48000
+DB90 = 10.0 ** (-90.0 / 20.0)
+# one step of the fingerprint's 4-decimal rounding
+ROUNDING = 1e-4 * (1.0 + 1e-6)
+
+GRAPH_ARGS = ["--seconds", "2", "--submixers", "2", "--sources-per-mixer", "2"]
+
+# example -> (extra arguments, fingerprint bound against the golden)
+GOLDENS = {
+    "play_sequence": ([], ROUNDING),
+    "play_synth": ([], ROUNDING),
+    "play_graph": (GRAPH_ARGS, ROUNDING),
+    # 330 Hz at 48 kHz puts the square's edge exactly on a sample every
+    # 800 samples; there the port's float64 phase sum and XLA's float32
+    # cumsum round to opposite sides of the edge, and the polyBLEP sample
+    # differs by up to 0.9: 1.6e-3 measured, within the JAX golden test's
+    # own bound, 2e-3
+    "play_custom": ([], 2e-3),
+    # at a grain density of 25 Hz the trigger phase steps are not dyadic,
+    # so a grain can start one sample apart: 3.2e-3 measured, and the same
+    # for the attributed JAX render (test_example_matches_attributed_jax)
+    "play_grains": ([], 5e-3),
+}
+
+# The JAX example with its float32 phase sums taken in float64 and rounded
+# once, as the port takes them: every float32 ``jnp.cumsum`` and
+# ``jnp.exp2``, and the oscillators' phase (the port's ops/osc.py).  Run
+# in a subprocess, since it turns on jax_enable_x64.
+ATTRIBUTED = """
+import runpy, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import numpy as np
+import phonic_tpu.ops.osc as josc
+
+cumsum32, exp2_32 = jnp.cumsum, jnp.exp2
+
+
+def cumsum(a, axis=None, dtype=None, **kw):
+    a = jnp.asarray(a)
+    if a.dtype == jnp.float32 and dtype is None:
+        return cumsum32(a.astype(jnp.float64), axis=axis,
+                        **kw).astype(jnp.float32)
+    return cumsum32(a, axis=axis, dtype=dtype, **kw)
+
+
+def exp2(x):
+    x = jnp.asarray(x)
+    if x.dtype != jnp.float32:
+        return exp2_32(x)
+    return exp2_32(x.astype(jnp.float64)).astype(jnp.float32)
+
+
+def phase_accumulate(phase0, freq, sr):
+    inc = (jnp.asarray(freq, jnp.float32) * np.float32(1.0 / sr)
+           ).astype(jnp.float64)
+    csum = cumsum32(inc)
+    p0 = jnp.asarray(phase0, jnp.float64)
+
+    def wrap(v):
+        f = (v - jnp.floor(v)).astype(jnp.float32)
+        return jnp.where(f >= 1.0, f - 1.0, f)
+    return wrap(p0 + (csum - inc)), wrap(p0 + csum[-1])
+
+
+jnp.cumsum, jnp.exp2, josc.phase_accumulate = cumsum, exp2, phase_accumulate
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def fingerprint(path) -> list:
+    """tests/test_golden_examples.py's fingerprint."""
+    audio, info = read_wav(path)
+    x = np.asarray(audio, np.float64)
+    n = (x.shape[1] // 4096) * 4096
+    blocks = x[:, :n].reshape(x.shape[0], -1, 4096)
+    rms = np.sqrt(np.mean(blocks**2, axis=-1))  # [ch, nblocks]
+    return [info.frames] + [round(float(v), 4) for v in rms.reshape(-1)]
+
+
+def _run(argv, fn):
+    old = sys.argv
+    sys.argv = argv
+    try:
+        fn()
+    finally:
+        sys.argv = old
+
+
+def port_example(name, out, *args):
+    _run([name, "-o", str(out), "--device", "cpu", *args],
+         lambda: runpy.run_module(f"phonic_tpu_torch.examples.{name}",
+                                  run_name="__main__"))
+    return out
+
+
+def jax_example(name, out, *args):
+    path = str(ROOT / "examples" / f"{name}.py")
+    _run([path, "-o", str(out), *args],
+         lambda: runpy.run_path(path, run_name="__main__"))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(GOLDENS))
+def test_example_matches_golden(name, tmp_path):
+    args, bound = GOLDENS[name]
+    want = json.loads(GOLDEN.read_text())[name]
+    got = fingerprint(port_example(name, tmp_path / f"{name}.wav", *args))
+    assert got[0] == want[0], f"{name}: length {got[0]} != {want[0]}"
+    np.testing.assert_allclose(got[1:], want[1:], rtol=0, atol=bound,
+                               err_msg=f"{name} fingerprint")
+
+
+@pytest.mark.parametrize("name", ["play_custom", "play_grains"])
+def test_example_matches_attributed_jax(name, tmp_path):
+    """The port's example against the JAX example with float64 phase sums:
+    the fingerprint to one step of its rounding, and play_custom's samples
+    to -90 dB (play_grains' differ by up to -73 dB of peak, a difference
+    spread over many samples and not attributed further)."""
+    got_path = port_example(name, tmp_path / "port.wav")
+    want_path = tmp_path / "jax.wav"
+    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
+    subprocess.run([sys.executable, "-c", ATTRIBUTED,
+                    str(ROOT / "examples" / f"{name}.py"), "-o",
+                    str(want_path)], env=env, cwd=ROOT, check=True,
+                   timeout=300, stdout=subprocess.DEVNULL)
+    got, want = fingerprint(got_path), fingerprint(want_path)
+    assert got[0] == want[0], f"{name}: length {got[0]} != {want[0]}"
+    np.testing.assert_allclose(got[1:], want[1:], rtol=0, atol=ROUNDING,
+                               err_msg=f"{name} fingerprint")
+    if name == "play_custom":
+        a, b = np.asarray(read_wav(got_path)[0]), np.asarray(read_wav(want_path)[0])
+        err, peak = np.abs(a - b).max(), np.abs(b).max()
+        assert peak > 0.1 and err <= DB90 * peak, \
+            f"{20 * np.log10(err / peak):.1f} dB"
+
+
+def test_play_file_matches_jax_example(tmp_path):
+    got, _ = read_wav(port_example("play_file", tmp_path / "port.wav"))
+    want, _ = read_wav(jax_example("play_file", tmp_path / "jax.wav"))
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    peak = np.abs(want).max()
+    assert peak > 0.1
+    err = np.abs(got - want).max()
+    assert err <= DB90 * peak, f"{20 * np.log10(err / peak):.1f} dB"
+
+
+@pytest.mark.parametrize("name,args,frames", [
+    ("play_device", [], 2 * SR),
+    ("play_web", ["--seconds", "1.5"], int(1.5 * SR)),
+    # 15 scripted keys 0.12 s apart, then one second
+    ("play_interactive", ["--selftest"], 15 * int(0.12 * SR) + SR),
+])
+def test_realtime_examples_render_offline(name, args, frames, tmp_path):
+    audio, info = read_wav(port_example(name, tmp_path / f"{name}.wav", *args))
+    assert info.frames == frames
+    audio = np.asarray(audio)
+    assert np.isfinite(audio).all() and np.abs(audio).max() > 0.05

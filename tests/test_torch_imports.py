@@ -3,6 +3,7 @@
 Every module of ``phonic_tpu_torch`` and ``chip_smoke.py`` (the script the
 card runs) is imported in a fresh interpreter where ``jax``, ``jaxlib`` and
 ``phonic_tpu`` cannot be imported: an import of any of them raises there.
+One port example also renders there, its realtime bridge built and loaded.
 """
 
 import os
@@ -49,6 +50,13 @@ print(" ".join(names))
 SLICE_G = ("ops.osc", "ops.waveform", "ops.fader", "sources.synth", "synths",
            "generators.synth", "sources.empty", "effects.filter",
            "effects.pan", "sources.streamed", "synth64")
+# the lane-batched programs, the output devices and the examples
+SLICE_H = ("parallel", "parallel.mesh", "outputs.rt", "outputs.web",
+           "examples", "examples.common", "examples.play_file",
+           "examples.play_sequence", "examples.play_grains",
+           "examples.play_synth", "examples.play_custom", "examples.play_graph",
+           "examples.play_device", "examples.play_web",
+           "examples.play_interactive")
 
 
 def test_port_imports_without_jax():
@@ -61,8 +69,28 @@ def test_port_imports_without_jax():
     # and chip_smoke
     assert count >= 71, out.stdout
     imported = set(out.stdout.split("\n", 1)[1].split())
-    missing = [m for m in SLICE_G if f"phonic_tpu_torch.{m}" not in imported]
+    missing = [m for m in SLICE_G + SLICE_H
+               if f"phonic_tpu_torch.{m}" not in imported]
     assert not missing, missing
+
+
+def test_example_renders_without_jax(tmp_path):
+    out = tmp_path / "device.wav"
+    code = _PROBE.split("import phonic_tpu_torch\n", 1)[0] + (
+        "import runpy\n"
+        f"sys.argv = ['play_device', '-o', {str(out)!r}, '--device', 'cpu']\n"
+        "runpy.run_module('phonic_tpu_torch.examples.play_device',"
+        " run_name='__main__')\n"
+        "from phonic_tpu_torch.outputs import rt_available\n"
+        "assert rt_available()\n"
+        "leaked = sorted(n for n in sys.modules if n.split('.')[0] in BLOCKED)\n"
+        "assert not leaked, leaked\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "rendered 96000 frames" in res.stdout
+    assert out.stat().st_size > 96000 * 2 * 4
 
 
 def test_probe_blocks_the_jax_package():
