@@ -2,9 +2,9 @@
 against its plain PyTorch version on the card, then render the headline
 mixer graph, the mastering chain, the 64-voice sampler, the play_file path
 (preloaded and streamed), the granular sampler, the live Player, the
-synth path and the headline graph as 8 batched lanes at full width on the
-card, render the port's examples and drive its output devices, and check
-them.
+synth path and the headline graph as 8 batched lanes, shared and with
+per-lane inputs, at full width on the card, render the port's examples
+and drive its output devices, and check them.
 
     python3 chip_smoke.py
 
@@ -109,7 +109,20 @@ phase fails.  Phases:
    render played through ``RtOutput`` (ALSA when present, else its paced
    sink; its ``sample_position`` and wall time logged), and a
    ``WebOutput`` on 127.0.0.1 serving its WAV header and the written
-   frames to one read with a timeout;
+   frames to one read with a timeout; (h) the headline graph as 8 lanes
+   whose inputs are per lane, each lowered by its own CPU program with its
+   own schedule (lane 0 plain; every other lane its own master-gain ramp
+   and a volume event on a source of its own; lane 3 a speed glide, lane
+   5 a stop, lane 6 a seek, lane 7 an EQ5 band and the chorus depth): one
+   warm block, then 4 blocks timed with the launch counters set to 0 just
+   before, exactly 1 ramp_read, 9 iir2 and 1 iir1 per block; the lanes
+   must differ by more than 0.05 of peak, every lane equal its own
+   single-lane program on the card within 1e-6, lanes 0 and 7 their CPU
+   renders to -90 dB; the host lowering per block of 8 lanes and of one,
+   and one lane and the 8 lanes timed back to back (1, 8, 8, 1); then
+   the sampler (config 2) as 4 lanes with its notes transposed by 0, 7,
+   -5 and 12 semitones, 1 ramp_read per block, each lane equal to its own
+   card render within 1e-6;
 7. under ``torch.profiler``, after every timed render (a profiler session
    slows the launches that follow it in the process): one more block of
    each path, which gives the device operations, the host-to-device
@@ -120,7 +133,8 @@ phase fails.  Phases:
    synchronising calls PyTorch reports in it (its sync debug mode) are
    logged with where they come from: the synth Player fails the run on a
    ``cudaStreamSynchronize`` or a reported call;
-   the batched headline's block is one step of its 8 lanes;
+   the batched headline's block is one step of its 8 lanes, the per-lane
+   headline's one step of 8 lanes' own inputs;
    each kernel's kernel-only device time (the profiler's events of its own
    launches, and their number per call) and its share of its bound, at
    each path's shape (``batched_headline``: B=128, R=64, R=16) and at the
@@ -1013,6 +1027,155 @@ def batched_phase(dev, prog, single, ref):
     return launches, batched
 
 
+def schedule_lane(prog, k):
+    """Lane k's own schedule on a headline program (phase 6h): lane 0 is
+    plain; every other lane ramps the master gain and changes one source's
+    volume, each its own; lane 3 glides a source's speed (within its step
+    bucket), lane 5 stops a source, lane 6 seeks one and lane 7 moves an
+    EQ5 band and the chorus depth."""
+    if k == 0:
+        return
+    prog.set_parameter("main/gain", "GAIN", 0.5 + 0.06 * k, at_frame=10000 * k)
+    src = f"main/sub{(2 * k) % 4}/src{2 * k}"
+    prog.set_parameter(src, "VOLU", 0.1, at_frame=BLOCK // 2 + 1000 * k)
+    if k == 3:
+        speed = prog.nodes["main/sub1/src1"].options.speed
+        top = 2.0 ** np.ceil(np.log2(speed))  # the top of its step bucket
+        prog.set_parameter_glide("main/sub1/src1", "SPED",
+                                 min(1.15 * speed, top), 6.0, at_frame=20000)
+    elif k == 5:
+        prog.stop_source("main/sub3/src3", at_frame=BLOCK + 12345)
+    elif k == 6:
+        prog.nodes["main/sub1/src5"].seek(BLOCK + 100, 3000.0)
+    elif k == 7:
+        prog.set_parameter("main/sub0/eq", "gan3", 9.0, at_frame=2000)
+        prog.set_parameter("main/sub1/chorus", "dpth", 0.9, at_frame=2000)
+
+
+def headline_lane(k, device):
+    prog = mixer_graph_program(block_frames=BLOCK, device=device)
+    schedule_lane(prog, k)
+    return prog
+
+
+def lowering_ms(lanes, shard, blocks):
+    """Host ms per block to lower the lanes' inputs (each lane program's
+    ``block_inputs`` and the batched program's arrays of them), and one
+    lane's alone."""
+    def run(progs, prog):
+        t0 = time.perf_counter()
+        for b in blocks:
+            ins = [p.block_inputs(b) for p in progs]
+            prog._host_arrays(ins if len(ins) > 1 else ins[0])
+        return (time.perf_counter() - t0) * 1e3 / len(blocks)
+    return run(lanes, shard), run(lanes[:1], lanes[0])
+
+
+def divergent_phase(dev, prog, ref):
+    """Phase 6h: the headline graph as LANES lanes of one
+    ``BatchedRenderProgram``, each lane's inputs lowered by its own CPU
+    program with its own schedule (``schedule_lane``): one warm block,
+    then 4 blocks timed with the launch counters set to 0 just before
+    (exactly 1 ramp_read, 9 iir2 and 1 iir1 per block); every lane against
+    its own single-lane program on the card within 1e-6, lanes 0 and 7
+    against their CPU renders to -90 dB (lane 0's is phase 3's, ``ref``),
+    the lanes differing by more than
+    0.05 of peak; the host lowering per block for LANES lanes and one; the
+    single-lane program ``prog`` and the lanes timed back to back; then
+    the sampler (config 2) as 4 lanes, each with its notes transposed,
+    each against its own card render within 1e-6, 1 ramp_read per block.
+    Returns the headline's launches, the batched program, its state after
+    the timed blocks and the lane programs."""
+    batched = BatchedRenderProgram(
+        mixer_graph_program(block_frames=BLOCK, device=dev), lanes=LANES)
+    lanes = [headline_lane(k, "cpu") for k in range(LANES)]
+
+    def run(blocks):
+        states, outs = batched.init_states(), []
+        for b in range(blocks):
+            states, y = batched.step(states, [p.block_inputs(b) for p in lanes])
+            outs.append(y)
+        return states, torch.cat(outs, dim=-1).cpu().numpy()
+
+    run(1)  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    states, audio = run(4)
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    log(f"  {LANES} lanes, each its own inputs, x {4 * BLOCK} frames in "
+        f"{wall:.3f} s: aggregate {LANES * 4 * BLOCK / SR / wall:.1f} "
+        "audio-seconds per second")
+    want = {"ramp_read": 4, "iir2": 9 * 4, "iir1": 4}
+    if {k: launches[k] for k in want} != want:
+        raise RuntimeError(f"divergent headline: launches {launches}, want "
+                           f"{want} over 4 blocks")
+    check_audio("divergent headline lane 0", audio[0], (2, 4 * BLOCK))
+    if audio.shape != (LANES, 2, 4 * BLOCK):
+        raise RuntimeError(f"divergent headline: shape {audio.shape}")
+    apart = [float(np.abs(audio[k] - audio[0]).max()) for k in range(LANES)]
+    peak = float(np.abs(audio).max())
+    log(f"  each lane's largest difference from lane 0: "
+        f"{[round(a, 4) for a in apart]}, peak {peak:.4f}")
+    if not min(apart[1:]) > 0.05 * peak:
+        raise RuntimeError("divergent headline: lanes do not differ")
+    errs = []
+    for k in range(LANES):
+        own = headline_lane(k, dev).render(4 * BLOCK)
+        errs.append(float(np.abs(audio[k] - own).max()))
+    log(f"  each lane vs its own program on the card: max_abs_err "
+        f"{max(errs):.3e} ({[f'{e:.1e}' for e in errs]})")
+    if not max(errs) <= 1e-6:
+        raise RuntimeError("divergent headline: a lane differs from its own "
+                           "program")
+    against_cpu_ref("divergent headline lane 0", audio[0], ref)
+    t0 = time.perf_counter()
+    ref7 = headline_lane(7, "cpu").render(2 * BLOCK)
+    log(f"  lane 7's CPU render of 2 blocks: {time.perf_counter() - t0:.1f} s")
+    against_cpu_ref("divergent headline lane 7", audio[7], ref7)
+    many, one = lowering_ms(lanes, batched.shards[0], range(4, 8))
+    log(f"  host lowering per block: {LANES} lanes {many:.2f} ms, one lane "
+        f"{one:.2f} ms")
+    for k in (1, LANES, LANES, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if k == 1:
+            prog.render(4 * BLOCK)
+        else:
+            run(4)
+        wall = time.perf_counter() - t0
+        log(f"  back to back, {k} lane(s) x {4 * BLOCK} frames in "
+            f"{wall:.3f} s: {k * 4 * BLOCK / SR / wall:.2f} audio-seconds "
+            "per second")
+
+    # the sampler, each lane's notes transposed by its own interval
+    shifts = (0, 7, -5, 12)
+    pool = BatchedRenderProgram(sampler_program(BLOCK, dev), lanes=len(shifts))
+    note_progs = [sampler_program(BLOCK, "cpu", t) for t in shifts]
+    st = pool.init_states()
+    reset_counters()
+    outs = []
+    for b in range(3):
+        st, y = pool.step(st, [p.block_inputs(b) for p in note_progs])
+        outs.append(y)
+    got = torch.cat(outs, dim=-1).cpu().numpy()
+    slaunches = read_counters()
+    if slaunches["ramp_read"] != 3:
+        raise RuntimeError(f"sampler lanes: {slaunches['ramp_read']} "
+                           "ramp_reads over 3 blocks, want 3")
+    serr = [float(np.abs(got[k] - sampler_program(BLOCK, dev, t).render(
+        3 * BLOCK)).max()) for k, t in enumerate(shifts)]
+    spart = min(float(np.abs(got[k] - got[0]).max()) for k in (1, 2, 3))
+    log(f"  sampler, {len(shifts)} lanes transposed {shifts}: each lane vs "
+        f"its own card render max_abs_err {max(serr):.3e}; lanes apart by "
+        f">= {spart:.3f} (peak {float(np.abs(got).max()):.3f})")
+    if not max(serr) <= 1e-6 or not spart > 0.05 * float(np.abs(got).max()):
+        raise RuntimeError("sampler lanes: a lane differs from its own "
+                           "program, or the lanes do not differ")
+    return launches, batched, states, lanes
+
+
 def against_cpu_ref(name, audio, ref):
     """Blocks 0-1 of ``audio`` against a CPU render, to -90 dB of each
     block's peak."""
@@ -1319,6 +1482,9 @@ def kernel_report(measured, off_path, paths):
     report = {"kernels": []}
     for name in COUNTERS:
         by_path = measured[name]
+        if "batched_headline" in by_path and "divergent_headline" in paths:
+            # per-lane inputs: the same kernels at the same shapes
+            by_path["divergent_headline"] = dict(by_path["batched_headline"])
         for key, nums in by_path.items():
             # a path's second shape ("synth_64v/filter") shares its launches
             launches = paths.get(key.split("/")[0])
@@ -1403,12 +1569,18 @@ def main():
         dev, progs["headline"], single, refs["headline"])
     phase("6g: the port's examples, RtOutput and WebOutput on the card")
     outputs_phase(tmp.name)
+    phase(f"6h: the headline graph as {LANES} lanes, each its own inputs")
+    paths["divergent_headline"], divergent, div_states, div_lanes = \
+        divergent_phase(dev, progs["headline"], refs["headline"])
     # a profiler session leaves launches slower for the rest of the process,
     # so every profiled number comes after the timed renders
     phase("7: under the profiler")
     for name, prog in progs.items():
         device_busy(name, prog)
     device_busy("batched_headline", batched.shards[0])
+    # a per-lane block after the timed ones: the smoothers already per lane
+    log_busy("divergent_headline", *profile_block(lambda: divergent.step(
+        div_states, [p.block_inputs(4) for p in div_lanes])[1].cpu()))
     player_busy(player)
     player_busy(synth_pl, "synth player", strict=True)
     kernel_times(calls)

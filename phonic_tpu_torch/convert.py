@@ -163,24 +163,25 @@ def batched_state_from_jax(np_states, batched):
     Each lane converts as :func:`state_from_jax` converts one program's
     state, and lane k lands in rows ``k * G .. k * G + G - 1`` of each
     folded bank of G members (its silence ages in columns of each chain's
-    [stages, lanes * G]).  The port smooths automation once for all lanes,
-    so every lane's smoother state must be equal; a ``ValueError`` says
-    otherwise."""
+    [stages, lanes * G]).  A parameter group whose smoother state is equal
+    in every lane of a shard keeps one lane's rows ``[P]`` (the lanes share
+    the smoothing); one whose lanes differ takes every lane's, ``[L*P]``
+    lane-major, as a program that has stepped per-lane inputs holds it."""
     from .graph.engine import tree_leaves, tree_map
 
     lanes = [state_from_jax(_lane(np_states, k), batched.program)
              for k in range(batched.lanes)]
-    smoothers = lanes[0]["smoothers"]
-    for k, st in enumerate(lanes[1:], 1):
-        for a, b in zip(tree_leaves(smoothers), tree_leaves(st["smoothers"])):
-            if not torch.equal(a, b):
-                raise ValueError(
-                    f"lane {k}'s smoother state differs from lane 0's: the "
-                    "port's lanes share one smoothing of the automation")
     per = batched.lanes // len(batched.shards)
     out = []
     for j, shard in enumerate(batched.shards):
         group = lanes[j * per:(j + 1) * per]
+        smoothers = {}
+        for key, st0 in group[0]["smoothers"].items():
+            sts = [g["smoothers"][key] for g in group]
+            equal = all(torch.equal(a, b) for st in sts[1:] for a, b in
+                        zip(tree_leaves(st0), tree_leaves(st)))
+            smoothers[key] = st0 if equal else tree_map(
+                lambda *xs: torch.cat(xs), *sts)
         st = {"smoothers": smoothers}
         for key in ("file_batches", "pools", "chains"):
             st[key] = tree_map(lambda *xs: torch.cat(xs),

@@ -23,6 +23,7 @@ import torch
 
 from ..graph.nodes import BuildCtx, Effect
 from ..ops import chrono as chrono_ops, filters, lfo as lfo_ops, ring as ring_ops
+from ..ops.precision import recip32
 from ..params import (
     EnumParameter, ExponentialScaling, FloatParameter, format_degrees,
     format_percent,
@@ -143,8 +144,11 @@ class ChorusEffect(Effect):
                                             filters.per_channel(coefs),
                                             dtype=ctx.scan_dtype)
 
-        # LFOs: sine pair with a phase offset on the right channel
-        inc = params[RATE.id] / sr
+        # LFOs: sine pair with a phase offset on the right channel.  The
+        # increment is a product with the rate's float32 reciprocal, as XLA
+        # and the card evaluate the division: the CPU's true quotient can
+        # differ by an ulp, and the phase sum carries that on
+        inc = params[RATE.id] * recip32(sr)
         phase_norm = params[PHASE.id] / (2.0 * math.pi)
         lfo_l_state, lfo_l = lfo_ops.lfo_block(state["lfo_l"], inc, n)
         # right LFO = left phase + offset, from the same accumulator (both

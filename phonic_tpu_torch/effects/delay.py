@@ -30,6 +30,7 @@ import torch
 
 from ..graph.nodes import BuildCtx, Effect
 from ..ops import chrono as chrono_ops, filters, lfo as lfo_ops, ring as ring_ops
+from ..ops.precision import recip32
 # format_degrees is a name of this module in the JAX package too
 from ..params import (  # noqa: F401
     EnumParameter, ExponentialScaling, FloatParameter, format_degrees,
@@ -181,7 +182,7 @@ class DelayEffect(Effect):
 
         # LFO over the whole block with per-sample rate
         lfo_state, lfo_val = lfo_ops.lfo_block(
-            state["lfo"], params[LFO_RATE.id] / sr, n, waveform=shape,
+            state["lfo"], params[LFO_RATE.id] * recip32(sr), n, waveform=shape,
             seed=self.seed)
 
         delay_ms = torch.clamp(

@@ -156,6 +156,14 @@ def _fma(a, b, c):
     return (torch.as_tensor(a).to(torch.float64) * b + c).to(torch.float32)
 
 
+def _col(x, dims: int, dtype=None):
+    """A loop-range value as a column: a per-voice ``[V]`` as ``[V]`` +
+    ``dims`` ones, to broadcast against per-voice arrays; a scalar as it
+    is."""
+    x = torch.as_tensor(x, dtype=dtype)
+    return x if x.dim() == 0 else x.reshape(x.shape + (1,) * dims)
+
+
 def _running_sum(start, steps):
     """``start + cumsum(steps)`` along the last dimension, summed in float64
     and rounded once to float32 (module docstring)."""
@@ -168,16 +176,16 @@ def playhead_trajectory(playhead0, in_loop0, steps, loop_range):
 
     playhead0/in_loop0: [...] per voice; steps: [..., n] per-sample
     normalized increments (already masked to the active region);
-    loop_range: (on, start, end) scalars or 0-d tensors.  Returns
-    (playhead [..., n], entered [..., n]).
+    loop_range: (on, start, end) scalars, 0-d tensors or ``[V]`` per
+    voice.  Returns (playhead [..., n], entered [..., n]).
 
     As in the JAX package, ``entered`` latches on the prefix of the RAW
     (unfolded) trajectory's loop membership, and the folded branch folds
     that raw trajectory."""
     ph_raw = _running_sum(playhead0, steps)
-    loop_on = torch.as_tensor(loop_range[0]) > 0.5
-    ls = torch.as_tensor(loop_range[1], dtype=torch.float32)
-    le = torch.as_tensor(loop_range[2], dtype=torch.float32)
+    loop_on = _col(loop_range[0], 1) > 0.5
+    ls = _col(loop_range[1], 1, torch.float32)
+    le = _col(loop_range[2], 1, torch.float32)
     ll = torch.clamp(le - ls, min=1e-9)
     wrapped = torch.remainder(ph_raw, 1.0)
     in_range = (wrapped >= ls) & (wrapped < le) & loop_on
@@ -227,7 +235,7 @@ def granular_voice_alloc(
     n: int,
     sr: int,
     frames: int,  # source length in frames (positions fold on this circle)
-    loop_range,  # (on, start_norm, end_norm) scalars; on <= 0.5 = off
+    loop_range,  # (on, start_norm, end_norm) scalars or [V]; on <= 0.5 = off
     note_start,  # int [V]: global frame of the current note-on (NEVER: none)
     held,  # bool [V, n]: may trigger new grains (note held, pre-release)
     speed,  # [V, n]: effective voice speed (note * transpose * finetune)
@@ -237,10 +245,10 @@ def granular_voice_alloc(
     # offsets applied by the caller:
     size_ms, density, variation, spray, pan_spread, position, pos_mod, step,
     speed_mod,
-    overlap_mode,  # int or 0-d tensor: 0 cloud, 1 sequential
-    window_mode,  # int [n]
+    overlap_mode,  # int, 0-d tensor or [V]: 0 cloud, 1 sequential
+    window_mode,  # int [n] or [V, n]
     window_table=None,  # the flat window LUT on the device
-    direction,  # int [n]
+    direction,  # int [n] or [V, n]
     seed,  # int [V] tensor (or an int): the voices' RNG seeds
     max_triggers: int,
     max_read_speed: float = 4.0,
@@ -409,7 +417,7 @@ def granular_voice_alloc(
     env = window_sample(g_wmode[..., None], wphase, window_table) \
         * g_vol[..., None]
     pos = _fma(localf, g_inc[..., None], g_pos0[..., None])
-    pos_folded = ls + torch.remainder(pos - ls, ll)
+    pos_folded = _col(ls, 2) + torch.remainder(pos - _col(ls, 2), _col(ll, 2))
     pos = torch.where(g_loop[..., None] > 0.5, pos_folded,
                       torch.remainder(pos, 1.0))
     fidx = pos * np.float32(frames - 1)

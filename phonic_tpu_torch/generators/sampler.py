@@ -86,6 +86,20 @@ ENV_SUSTAIN = FloatParameter("ASTN", "Sustain", 0.0, 1.0, 1.0, smoothing=None)
 ENV_RELEASE = FloatParameter("AREL", "Release", 0.0, 10.0, 0.05, unit="s",
                              scaling=ExponentialScaling(3.0), smoothing=None)
 
+# the lowered arrays a generator holds per voice (the others per generator)
+VOICE_KEYS = ("_trig_", "_cont_", "_ta_", "_ca_")
+
+
+def voice_rows(params, voices, nv: int):
+    """A generator pool of one with L instances: its parameters [L, n] and
+    lowered arrays ([L, V, ...] per voice, [L, ...] per generator) as rows
+    per voice, lane-major: [L*V, n] and [L*V, ...]."""
+    p = {k: x.repeat_interleave(nv, 0) for k, x in params.items()}
+    vs = {k: x.flatten(0, 1) if k.startswith(VOICE_KEYS)
+          else x.repeat_interleave(nv, 0) for k, x in voices.items()}
+    return p, vs
+
+
 # granular parameters (sampler.rs:219-296)
 GRAIN_OVERLAP = EnumParameter("GOVM", "Overlap Mode", OVERLAP_MODES, "Cloud")
 GRAIN_WINDOW = EnumParameter("GWND", "Window", WINDOW_MODES, "Hann")
@@ -736,12 +750,13 @@ class Sampler(Generator):
         """Render a granular sampler, a generator pool of one, with the
         modulation matrix feeding the 7 granular targets.  The state has a
         leading dimension L, the sampler's instances in a lane-batched
-        program (1 otherwise); the parameters and the voice arrays, shared
-        by the instances, are read from their first row.
+        program (1 otherwise), and so do the parameters ``[L, n]`` and the
+        voice arrays: each instance's own.
 
-        The voices' note logic and modulation run once per block over
-        ``[V, n]``, and the grain pools of every instance over
-        ``[L*V, ...]`` (lane-major).  The grain pools then allocate chunk by chunk (the JAX
+        The voices' note logic and modulation run over ``[V, n]`` for one
+        instance and over ``[L*V, n]`` (lane-major) for several, the
+        per-sample parameters then per voice; the grain pools of every
+        instance run over ``[L*V, ...]``.  The grain pools allocate chunk by chunk (the JAX
         package's hoisted-read formulation, sampler.py:1029-1083): each
         chunk's read positions and weights go into ``[V*POOL, n]`` tensors,
         and since the reads never feed back into allocation, every grain of
@@ -757,8 +772,19 @@ class Sampler(Generator):
         lanes = state["base"].shape[0]
         lv = lanes * nv
         f32 = torch.float32
-        p = {k: x[0] for k, x in params.items()}  # [n]
-        vs = {k: x[0] for k, x in voices.items()}  # [V], [S, T] or 0-d
+        voice_no = torch.arange(1, nv + 1, dtype=torch.int64, device=dev)
+        if lanes == 1:
+            p = {k: x[0] for k, x in params.items()}  # [n]
+            vs = {k: x[0] for k, x in voices.items()}  # [V], [S, T] or 0-d
+
+            def first(x):  # a parameter's value at the block's start
+                return x[0]
+        else:
+            p, vs = voice_rows(params, voices, nv)  # [L*V, n], [L*V, ...]
+            voice_no = voice_no.repeat(lanes)
+
+            def first(x):
+                return x[:, :1]
         frames = len(self._mono_buffer(sr))
         # runtime loop range, normalized over the source length
         inv_len = np.float32(1.0 / float(self.buffer.frames))
@@ -797,12 +823,11 @@ class Sampler(Generator):
         speed = pitch * note_value(vs["_trig_spd"], vs["_cont_spd"])
 
         # modulation sources and targets of every voice
-        voice_no = torch.arange(1, nv + 1, dtype=torch.int64, device=dev)
         src = eval_sources(build_source_specs(self.mod_config, p, sr), age,
                            nvol, note, rel, n,
                            seed=(self.seed ^ (0x9E37 * voice_no))[:, None])
         mods = apply_matrix(src, vs["_mod_amt"], vs["_mod_bip"],
-                            source_polarity(self.mod_config))  # [V, 7, n]
+                            source_polarity(self.mod_config))  # [.., 7, n]
         per_sample = dict(
             held=held, speed=speed, vol=p[VOLUME.id] * nvol,
             pan=torch.clamp(p[PANNING.id] + npan, -1.0, 1.0),
@@ -817,22 +842,16 @@ class Sampler(Generator):
             direction=p[GRAIN_DIRECTION.id].to(torch.int64),
         )
 
-        def over_lanes(x):  # one instance's [V, ...] -> [L*V, ...]
-            # (a view of x for one instance, a copy for several)
-            return x.expand((lanes,) + x.shape).reshape((-1,) + x.shape[1:])
-        # the per-voice [V, n] values; the per-sample [n] ones broadcast
-        per_sample = {k: over_lanes(x) if x.dim() == 2 else x
-                      for k, x in per_sample.items()}
 
         # --- allocation, chunk by chunk ------------------------------------
         cn = (_GRANULAR_CHUNK if n > _GRANULAR_CHUNK and n % _GRANULAR_CHUNK == 0
               else n)
         alloc = dict(
             n=cn, sr=sr, frames=frames, loop_range=loop_norm,
-            note_start=over_lanes(note_start),
-            overlap_mode=p[GRAIN_OVERLAP.id][0].to(torch.int64),
+            note_start=note_start,
+            overlap_mode=p[GRAIN_OVERLAP.id][..., 0].to(torch.int64),
             window_table=window_table(dev),
-            seed=over_lanes(self.seed ^ (voice_no * 0x51ED)),
+            seed=self.seed ^ (voice_no * 0x51ED),
             max_triggers=int(math.ceil(100.0 * cn / sr)) + 2,
             max_read_speed=eff_mrs)
         grains = {k: x.flatten(0, 1) for k, x in state["grains"].items()}
@@ -863,7 +882,7 @@ class Sampler(Generator):
 
         # voice-level AHDSR after the grain mix (voice.rs:470-486)
         if self.envelope is not None:
-            env_p = ahdsr_ops.ahdsr_params(sr, *(p[q.id][0] for q in (
+            env_p = ahdsr_ops.ahdsr_params(sr, *(first(p[q.id]) for q in (
                 ENV_ATTACK, ENV_HOLD, ENV_DECAY, ENV_SUSTAIN, ENV_RELEASE)))
             env_a = ahdsr_ops.ahdsr_block(env_p, 1.0, c_age0[:, None],
                                           vs["_cont_rel"][:, None], n)
@@ -872,8 +891,7 @@ class Sampler(Generator):
             env = torch.where(sel, env_b, env_a * c_on.to(f32)[:, None])
         else:
             env = active.to(f32)
-        mix = (audio * over_lanes(env)[:, None, :]).view(
-            lanes, nv, 2, n).sum(dim=1)
+        mix = (audio * env[:, None, :]).view(lanes, nv, 2, n).sum(dim=1)
         if ctx.channels == 1:
             mix = ((mix[:, 0] + mix[:, 1]) * 0.5)[:, None]
         elif ctx.channels > 2:

@@ -39,7 +39,7 @@ from ..ops.smoothing import SegmentEvents, step_targets
 from ..params import DecibelScaling, FloatParameter, format_gain, format_pan
 from ..sources.synth import SynthContext, SynthDef
 from .base import Generator, GeneratorPlaybackOptions
-from .sampler import Sampler
+from .sampler import Sampler, voice_rows
 
 # no scheduled stop (the JAX package's name here, as in sources/file.py)
 NEVER = np.iinfo(np.int32).max
@@ -170,17 +170,23 @@ class SynthGenerator(Generator):
         batched SynthDef call.  Returns (new state, audio [1, ch, n]).
 
         In a lane-batched program the pool holds L instances of the
-        generator (leading dimension L): their parameters and voice arrays
-        are the same, so the voices' note logic runs once over [V, n] and
-        only the SynthDef, whose state is each instance's own, runs over
-        L*V voices.  Returns audio [L, ch, n]."""
+        generator (leading dimension L), each with its own parameters and
+        voice arrays: the note logic runs over the L*V voices, lane-major,
+        and the SynthDef over L*V voices in one call.  Returns audio
+        [L, ch, n]."""
         from ..graph.engine import tree_map
         n = ctx.block_frames
         lanes = len(params[VOLUME.id])
         sr = ctx.sample_rate
-        p = {k: x[0] for k, x in params.items()}  # [n]
-        vs = {k: x[0] for k, x in inputs.items()}  # [V] or [V, K]
         nv = self.options.voices
+        voice_no = torch.arange(1, nv + 1, dtype=torch.int64,
+                                device=params[VOLUME.id].device)
+        if lanes == 1:
+            p = {k: x[0] for k, x in params.items()}  # [n]
+            vs = {k: x[0] for k, x in inputs.items()}  # [V] or [V, K]
+        else:
+            p, vs = voice_rows(params, inputs, nv)  # [L*V, n], [L*V, ...]
+            voice_no = voice_no.repeat(lanes)
         dev = vs["_trig_time"].device
         f32 = torch.float32
         i = torch.arange(n, dtype=torch.int64, device=dev)
@@ -235,35 +241,28 @@ class SynthGenerator(Generator):
 
         mods = {}
         if self.mod_config is not None:
-            voice_no = torch.arange(1, nv + 1, dtype=torch.int64, device=dev)
             src = eval_sources(build_source_specs(self.mod_config, p, sr), age,
                                vel, note, rel, n,
                                seed=(_SEED ^ (0x9E37 * voice_no))[:, None])
             m = apply_matrix(src, vs["_mod_amt"], vs["_mod_bip"],
                              source_polarity(self.mod_config))  # [V, T, n]
             mods = {t: m[:, k] for k, t in enumerate(self.mod_config.targets)}
-        def per_lane(x):  # [V, ...] -> [L*V, ...]
-            return (x if lanes == 1
-                    else x.repeat((lanes,) + (1,) * (x.dim() - 1)))
-
         sctx = SynthContext(
-            freq=per_lane(freq), gate=per_lane(gate), velocity=per_lane(vel),
-            age=per_lane(age), release_age=per_lane(rel),
+            freq=freq, gate=gate, velocity=vel, age=age, release_age=rel,
             sample_rate=sr, block_frames=n,
-            params={q.id: p[q.id] for q in self.synth.params},
-            mods={t: per_lane(m) for t, m in mods.items()})
+            params={q.id: p[q.id] for q in self.synth.params}, mods=mods)
         synth_state, audio = self.synth.render(
             tree_map(lambda a: a.flatten(0, 1), state["synth"]), sctx)
         if audio.dim() == 2:  # mono: every output channel
             audio = audio[:, None, :].expand(-1, ctx.channels, -1)
         audio = audio.unflatten(0, (lanes, nv))  # [L, V, ch, n]
         g = p[VOLUME.id] * vel * active.to(f32)
-        audio = audio * g[:, None, :]
+        audio = audio * g.view(lanes, -1, 1, n)
         if ctx.channels >= 2:
             left, right = panning_factors(torch.clamp(p[PANNING.id] + npan,
                                                       -1.0, 1.0))
-            audio = torch.cat([audio[:, :, :1] * left[:, None],
-                               audio[:, :, 1:2] * right[:, None],
+            audio = torch.cat([audio[:, :, :1] * left.view(lanes, -1, 1, n),
+                               audio[:, :, 1:2] * right.view(lanes, -1, 1, n),
                                audio[:, :, 2:]], dim=2)
         return ({"synth": tree_map(lambda a: a.unflatten(0, (lanes, nv)),
                                    synth_state)},

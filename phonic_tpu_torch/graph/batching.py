@@ -232,12 +232,16 @@ class FileBatch:
         return audio
 
     def render(self, state, frame0: int, volume, panning, speed, stop_at,
-               kill_at, seek_flag, seek_pos):
+               kill_at, seek_flag, seek_pos, speeds_differ: bool = False):
         """Parameters ``[S, n]``; stop/kill frames and seeks ``[S]``.
+        ``speeds_differ``: the instances' speeds come from their own
+        schedules, not the bank's sources' (a lane-batched program's
+        per-lane inputs), so the step bound is the largest bucket's: like
+        each instance's own bound, it clamps only steps above it.
         Returns (new_state, out [S, ch, n])."""
         n = self.ctx.block_frames
-        smax = 2.0 ** max(s.speed_bucket(self.ctx.sample_rate)
-                          for s in self.sources)
+        smax = 2.0 ** (rs.MAX_SPEED_BUCKET if speeds_differ else max(
+            s.speed_bucket(self.ctx.sample_rate) for s in self.sources))
         pos, mask, new_state = self.lane_pos(state, frame0, speed, kill_at,
                                              seek_flag, seek_pos, smax)
         if self.sinc is not None:
@@ -289,10 +293,12 @@ class LeafBatch:
 
     With ``lanes=L`` the bank holds L independent instances of its nodes
     (lane-major, as :class:`FileBatch`): the state, the statics and the
-    read map have L*G rows, the read table is not repeated, and the
-    lowered arrays, the same for every instance, are copied to the device
-    once and repeated there (:meth:`voices`).  Every pool reads all its
-    instances in one ``ramp_read`` per block."""
+    read map have L*G rows, and the read table is not repeated.  Shared
+    inputs, the same for every instance, lower one instance's arrays,
+    copied to the device once and repeated there (:meth:`voices`);
+    per-lane inputs stack every lane's own, ``[L*G, ...]``, with the step
+    bound and the live segments the largest over the lanes.  Every pool
+    reads all its instances in one ``ramp_read`` per block."""
 
     def __init__(self, nodes: list, paths: list[str], ctx, lanes: int = 1):
         self.nodes = nodes
@@ -362,14 +368,16 @@ class LeafBatch:
 
     def voices(self, flat, layout) -> dict:
         """The flat int32 tensor of :meth:`stack` on the device -> the
-        lowered arrays, as views of it ([G, ...] each), repeated over the
-        bank's instances ([L*G, ...]) when it holds several."""
+        lowered arrays, as views of it: one instance's ([G, ...] each),
+        repeated over the bank's instances ([L*G, ...]) when it holds
+        several, or every instance's own when the block's inputs are per
+        lane (``[L*G, ...]`` already)."""
         out, off = {}, 0
         for k, shape, is_float in layout:
             size = int(np.prod(shape))
             t = flat[off:off + size].view(shape)
             t = t.view(torch.float32) if is_float else t
-            out[k] = (t if self.lanes == 1
+            out[k] = (t if self.lanes == 1 or shape[0] != len(self.nodes)
                       else t.repeat((self.lanes,) + (1,) * (t.dim() - 1)))
             off += size
         return out

@@ -25,11 +25,24 @@ graph in every step, ``audio[L, channels, block]`` (the lane-batched
 programs of ``parallel/mesh.py``).  The lanes fold into the leading
 dimension of every bank: a file bank of S sources reads L*S rows, a pool
 of G nodes holds L*G, a chain of G mixers runs L*G, each lane-major (row
-``l * G + i`` is member i of instance l).  Automation is shared: a block
-lowers and uploads one instance's inputs, smooths each parameter once,
-and each bank gathers its parameter rows for all lanes in the same
-``index_select``.  So a block makes the launches of one instance, each
-over L times the rows.
+``l * G + i`` is member i of instance l).  A block's inputs are either
+shared by the lanes or given per lane:
+
+* shared (one dict of :meth:`RenderProgram.block_inputs`): a block lowers
+  and uploads one instance's inputs, smooths each parameter once, and each
+  bank gathers its parameter rows for all lanes in the same
+  ``index_select``;
+* per lane (a sequence of L such dicts, lane k's lowered by a program of a
+  structurally equal graph with its own schedule): the parameter groups
+  lower into ``[L*P, K]`` event rows, the smoothers carry ``[L*P]`` rows
+  from the first such block on (a shared block after it tiles its events
+  over the lanes on the device), and each bank reads lane l's rows
+  ``l * P + r``; stops, seeks, note arrays and effect inputs come from
+  each lane's dict.  Every lane of a block starts at the same ``frame0``,
+  which the host reads to choose code paths.
+
+Either way a block makes the launches of one instance, each over L times
+the rows.
 
 The live path (the Player) steps with :meth:`RenderProgram.step_packed`:
 every host array a block needs travels in one pinned buffer, one
@@ -285,15 +298,23 @@ class RenderProgram:
         }
 
     def _rows(self, paths, pid):
-        """(group key, row-index tensor) selecting parameter ``pid`` of each
-        node path (all rows of one parameter share a smoother group)."""
+        """(group key, shared rows, per-lane rows): row-index tensors
+        selecting parameter ``pid`` of each node path for every lane (all
+        rows of one parameter share a smoother group).  Shared rows index a
+        group's ``[P, n]`` values, the same rows for every instance;
+        per-lane rows index its ``[L*P, n]`` values, lane l's at
+        ``l * P + r``."""
         keys = {self._param_row[(p, pid)][0] for p in paths}
         if len(keys) != 1:
             raise ValueError(f"{pid}: lanes smooth differently ({keys})")
+        key = keys.pop()
         rows = [self._param_row[(p, pid)][1] for p in paths]
-        # every instance reads the same rows: the lanes share the smoothing
-        return keys.pop(), torch.tensor(rows * self.lanes, dtype=torch.int64,
-                                        device=self.device)
+        size = len(self._param_groups[key])
+
+        def index(r):
+            return torch.tensor(r, dtype=torch.int64, device=self.device)
+        return key, index(rows * self.lanes), index(
+            [lane * size + r for lane in range(self.lanes) for r in rows])
 
     def _build_source_batches(self):
         """Every file source renders as a lane of a FileBatch: one bank per
@@ -716,39 +737,101 @@ class RenderProgram:
     # the arrays a block copies to the device
     # ------------------------------------------------------------------
 
+    def _lane_inputs(self, inputs) -> Optional[list]:
+        """None for a block's shared inputs (one dict); for per-lane inputs
+        (a sequence of dicts) the list of them, checked against the
+        program: one per lane, every lane at the same ``frame0``, and each
+        lowered by a program of a structurally equal graph (the same
+        parameter groups and rows, source paths and nodes).  A
+        ``ValueError`` names the first difference."""
+        if isinstance(inputs, dict):
+            return None
+        lanes = list(inputs)
+        if len(lanes) != self.lanes:
+            raise ValueError(f"{len(lanes)} lanes of inputs for a program "
+                             f"of {self.lanes} lanes")
+        frame0 = int(lanes[0]["frame0"])
+        paths = set(self.source_paths)
+        for k, d in enumerate(lanes):
+            if int(d["frame0"]) != frame0:
+                raise ValueError(
+                    f"lane {k}'s block starts at frame {int(d['frame0'])}, "
+                    f"lane 0's at {frame0}: the lanes of a block render the "
+                    "same frames")
+            if set(d["params"]) != set(self._param_groups):
+                raise ValueError(
+                    f"lane {k}'s parameter groups "
+                    f"{sorted(set(d['params']) ^ set(self._param_groups))} "
+                    "differ from the program's")
+            for key, pps in self._param_groups.items():
+                rows = np.shape(d["params"][key][0])[0]
+                if rows != len(pps):
+                    raise ValueError(
+                        f"lane {k}'s parameter group {key} has {rows} rows, "
+                        f"the program's {len(pps)}")
+            if set(d["stops"]) != paths:
+                raise ValueError(
+                    f"lane {k}'s source paths "
+                    f"{sorted(set(d['stops']) ^ paths)} differ from the "
+                    "program's")
+            unknown = set(d.get("extra", {})) - set(self.nodes)
+            if unknown:
+                raise ValueError(f"lane {k} lowers inputs for nodes the "
+                                 f"program lacks: {sorted(unknown)}")
+        return lanes
+
     def _host_arrays(self, inputs):
         """The host arrays of a block's inputs that the step reads on the
         device, by name, and the host values derived from them that the
         step reads on the host (segment counts, a pool's layout and step
         bound).  Values that pick code paths (the block's start frame, an
-        effect's flags) stay in ``inputs``."""
+        effect's flags) stay in ``inputs``.  Per-lane inputs give each
+        parameter group ``[L*P, K]`` event rows and every bank its lanes'
+        rows, lane-major."""
         n = self.ctx.block_frames
         arrays, host = {}, {}
-        for gi, (key, (t, v, r)) in enumerate(
-                (k, inputs["params"][k]) for k in self._param_groups):
-            arrays[f"p{gi}.t"] = np.asarray(t, np.int64)
-            arrays[f"p{gi}.v"] = np.asarray(v, np.float32)
+        per = self._lane_inputs(inputs)
+
+        def cat(get, dtype=None):  # a group's event rows
+            if per is None:
+                return np.asarray(get(inputs), dtype)
+            return np.concatenate([np.asarray(get(d), dtype) for d in per])
+
+        for gi, key in enumerate(self._param_groups):
+            arrays[f"p{gi}.t"] = cat(lambda d: d["params"][key][0], np.int64)
+            arrays[f"p{gi}.v"] = cat(lambda d: d["params"][key][1], np.float32)
             if key[0] not in ("exponential", "linear", "spring"):
-                arrays[f"p{gi}.r"] = np.asarray(r)
-            host[f"p{gi}.live"] = smoothing.live_segments(t, n)
-        extra = inputs.get("extra", {})
+                arrays[f"p{gi}.r"] = cat(lambda d: d["params"][key][2])
+            host[f"p{gi}.live"] = smoothing.live_segments(arrays[f"p{gi}.t"],
+                                                          n)
+        # (lane inputs, extra) per lane; shared inputs repeat one lane's
+        lane_dicts = ([(inputs, inputs.get("extra", {}))] * self.lanes
+                      if per is None else [(d, d.get("extra", {})) for d in per])
         for bi, batch in enumerate(self.file_batches):
             def lanes(fn, dtype):
-                return np.array([fn(p) for p in batch.paths] * self.lanes,
-                                dtype)
+                return np.array([fn(d, ex, p) for d, ex in lane_dicts
+                                 for p in batch.paths], dtype)
 
-            arrays[f"b{bi}.stop"] = lanes(lambda p: inputs["stops"][p][0],
+            arrays[f"b{bi}.stop"] = lanes(lambda d, ex, p: d["stops"][p][0],
                                           np.int64)
-            arrays[f"b{bi}.kill"] = lanes(lambda p: inputs["stops"][p][1],
+            arrays[f"b{bi}.kill"] = lanes(lambda d, ex, p: d["stops"][p][1],
                                           np.int64)
             arrays[f"b{bi}.seek_flag"] = lanes(
-                lambda p: extra.get(p, {}).get("_seek_flag", 0.0), np.float32)
+                lambda d, ex, p: ex.get(p, {}).get("_seek_flag", 0.0),
+                np.float32)
             arrays[f"b{bi}.seek_pos"] = lanes(
-                lambda p: extra.get(p, {}).get("_seek_pos", 0.0), np.float32)
+                lambda d, ex, p: ex.get(p, {}).get("_seek_pos", 0.0),
+                np.float32)
         for pi, pool in enumerate(self.pools):
-            flat, layout, smax, live = pool.stack([
-                bank_inputs(self.nodes[p], extra.get(p), *inputs["stops"][p])
-                for p in pool.paths])
+            # one instance's nodes (repeated on the device), or every lane's
+            lowered = lane_dicts[:1] if per is None else lane_dicts
+            try:
+                flat, layout, smax, live = pool.stack([
+                    bank_inputs(self.nodes[p], ex.get(p), *d["stops"][p])
+                    for d, ex in lowered for p in pool.paths])
+            except ValueError as e:  # lowered arrays that do not stack
+                raise ValueError(f"the lanes' inputs for {pool.paths} do "
+                                 f"not stack: {e}") from None
             if flat is not None:
                 arrays[f"q{pi}"] = flat
             host[f"q{pi}"] = (layout, smax, live)
@@ -803,9 +886,18 @@ class RenderProgram:
         new_states, group_values = {}, {}
         for gi, key in enumerate(self._param_groups):
             kind, arg = key
-            ev = smoothing.SegmentEvents(dev[f"p{gi}.t"], dev[f"p{gi}.v"],
-                                         host[f"p{gi}.live"])
+            t, v, r = dev[f"p{gi}.t"], dev[f"p{gi}.v"], dev.get(f"p{gi}.r")
             st = smoother_state[key]
+            carried = tree_leaves(st)[0].shape[0]
+            if t.shape[0] > carried:
+                # the first per-lane block: every lane carries on from the
+                # shared rows, [P] -> [L*P] lane-major (a copy, exact)
+                st = tree_map(lambda a: a.repeat(self.lanes), st)
+            elif t.shape[0] < carried:
+                # shared events for per-lane rows: every lane takes them
+                t, v = t.repeat(self.lanes, 1), v.repeat(self.lanes, 1)
+                r = None if r is None else r.repeat(self.lanes, 1)
+            ev = smoothing.SegmentEvents(t, v, host[f"p{gi}.live"])
             if kind == "exponential":
                 new, vals = smoothing.exp_smoother_block(
                     st, ev, n, smoothing.exp_alpha(arg, sr))
@@ -815,7 +907,7 @@ class RenderProgram:
                 new, vals = smoothing.spring_smoother_block(
                     st, ev, n, smoothing.spring_omega(arg), sr)
             else:
-                new, vals = smoothing.step_targets(st, ev, dev[f"p{gi}.r"], n)
+                new, vals = smoothing.step_targets(st, ev, r, n)
             new_states[key] = new
             group_values[key] = vals
         return new_states, group_values
@@ -842,14 +934,21 @@ class RenderProgram:
         ctx = self.ctx
         n = ctx.block_frames
         lanes = self.lanes
-        frame0 = int(inputs["frame0"])
-        extra = inputs.get("extra", {})
+        per = None if isinstance(inputs, dict) else list(inputs)
+        frame0 = int((per or [inputs])[0]["frame0"])
+        # each lane's nodes' own inputs, lane-major
+        extras = ([inputs.get("extra", {})] * lanes if per is None
+                  else [d.get("extra", {}) for d in per])
         new_smoothers, values = self._smooth_all_params(
             state["smoothers"], host, dev)
 
+        def per_lane(key):  # the group's values differ between lanes
+            return values[key].shape[0] != len(self._param_groups[key])
+
         def rows(sel):
-            key, idx = sel
-            return values[key].index_select(0, idx)
+            key, shared, lane = sel
+            return values[key].index_select(0, lane if per_lane(key)
+                                            else shared)
 
         # file-source lane banks render first; render_pre consumes their rows
         # (each source's [L, ch, n]: its rows of every instance)
@@ -861,7 +960,7 @@ class RenderProgram:
                 state["file_batches"][bi], frame0, rows(sel["VOLU"]),
                 rows(sel["PANN"]), rows(sel["SPED"]), dev[f"b{bi}.stop"],
                 dev[f"b{bi}.kill"], dev[f"b{bi}.seek_flag"],
-                dev[f"b{bi}.seek_pos"])
+                dev[f"b{bi}.seek_pos"], per_lane(sel["SPED"][0]))
             new_batches.append(nb_state)
             out = out.view((lanes, len(batch.paths)) + out.shape[1:])
             for i, p in enumerate(batch.paths):
@@ -899,9 +998,10 @@ class RenderProgram:
             sts = []
             for i, e0 in enumerate(c["effects"][0]):
                 pvals = {pid: rows(sel) for pid, sel in c["params"][i].items()}
-                dicts = [extra.get(eps[i], {}) for eps in c["effect_paths"]]
+                dicts = [ex.get(eps[i], {}) for ex in extras
+                         for eps in c["effect_paths"]]
                 for k in sorted(set().union(*dicts)):
-                    pvals[k] = np.stack([d.get(k, 0) for d in dicts] * lanes)
+                    pvals[k] = np.stack([d.get(k, 0) for d in dicts])
                 st0 = state["chains"][cid][i]
                 if bypass:
                     silent = torch.amax(torch.abs(x), dim=(1, 2)) <= SILENCE

@@ -113,26 +113,31 @@ def _waveform_at(wf, phase, wraps, seed):
     stacked = torch.stack([sine, triangle, ramp_up, ramp_down, square, random,
                            smooth])
     idx = torch.clamp(torch.as_tensor(wf, device=phase.device).to(torch.int64),
-                      0, 6).reshape(1)
-    return torch.index_select(stacked, 0, idx)[0]
+                      0, 6)
+    if idx.numel() > 1:  # one id per row ([R, 1], per-row parameters)
+        return torch.gather(stacked, 0, idx.expand(phase.shape)[None])[0]
+    return torch.index_select(stacked, 0, idx.reshape(1))[0]
 
 
 def build_source_specs(config, params, sample_rate):
-    """Per-block, voice-independent payloads for each configured source.
-    ``params`` maps parameter ids to per-sample values ``[n]`` (the block's
-    first value is used).  Returns a list of (kind, payload) consumed by
-    :func:`eval_sources`."""
+    """Per-block payloads for each configured source.  ``params`` maps
+    parameter ids to per-sample values ``[n]``, or ``[R, n]`` with a row per
+    voice (the block's first value is used: a scalar, or ``[R, 1]``).
+    Returns a list of (kind, payload) consumed by :func:`eval_sources`."""
+    def first(x):
+        return x[0] if x.dim() == 1 else x[:, :1]
+
     specs = []
     lfo_slot = 0
     for s in config.sources:
         if isinstance(s, cfg_mod.LfoSource):
             lfo_slot += 1
-            inc = params[s.rate_param][0] * recip32(sample_rate)
-            wf = params[s.wave_param][0].to(torch.int32)
+            inc = first(params[s.rate_param]) * recip32(sample_rate)
+            wf = first(params[s.wave_param]).to(torch.int32)
             specs.append(("lfo", (inc, wf, 0x11 * lfo_slot)))
         elif isinstance(s, cfg_mod.EnvelopeSource):
             p = s.prefix
-            e0 = lambda c: params[p + c][0]
+            e0 = lambda c: first(params[p + c])
             env_p = ahdsr_ops.ahdsr_params(
                 sample_rate, e0("A"), e0("H"), e0("D"), e0("S"), e0("R"))
             specs.append(("env", env_p))
@@ -181,8 +186,9 @@ def source_polarity(config):
 
 def apply_matrix(sources, amounts, bipolar, src_bipolar=None):
     """sources [..., S, n] -> target offsets [..., T, n] with polarity
-    transforms.  ``amounts`` / ``bipolar`` [S, T] (tensors on the sources'
-    device, or arrays); ``src_bipolar``: [S] host source polarities
+    transforms.  ``amounts`` / ``bipolar`` [S, T] or [..., S, T] (per row;
+    tensors on the sources' device, or arrays); ``src_bipolar``: [S] host
+    source polarities
     (default: the stock LFO1/LFO2/VELM/KEYM layout).  The sum over sources
     runs in source order, as the JAX package's reduction does."""
     if src_bipolar is None:
@@ -193,12 +199,12 @@ def apply_matrix(sources, amounts, bipolar, src_bipolar=None):
     out = None
     for s, src_bip in enumerate(src_bipolar):
         x = sources[..., s, None, :]  # [..., 1, n]
-        tb = tgt_bip[s, :, None]  # [T, 1]
+        tb = tgt_bip[..., s, :, None]  # [..., T, 1]
         # four polarity cases (matrix.rs:196-246)
         if src_bip > 0.5:
             v = torch.where(tb, x, (x + 1.0) * 0.5)
         else:
             v = torch.where(tb, (x - 0.5) * 2.0, x)
-        term = v * amounts[s, :, None]
+        term = v * amounts[..., s, :, None]
         out = term if out is None else out + term
     return out

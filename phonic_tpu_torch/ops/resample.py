@@ -31,6 +31,10 @@ def length_bucket(frames: int) -> int:
     return max(int(frames).bit_length() - 16, 0)
 
 
+# the largest step bucket: no step bound exceeds 2**MAX_SPEED_BUCKET
+MAX_SPEED_BUCKET = 6
+
+
 def speed_bucket(max_step: float) -> int:
     """Power-of-two bucket exponent for a per-sample position step bound:
     smax = 2**bucket >= max_step.  File sources and samplers clamp their
@@ -38,7 +42,7 @@ def speed_bucket(max_step: float) -> int:
     positions match."""
     m = max(float(max_step), 1e-6)
     # exact powers of two stay in their own bucket (smax bounds inclusive)
-    return int(min(max(math.ceil(math.log2(m) - 1e-9), 0), 6))
+    return int(min(max(math.ceil(math.log2(m) - 1e-9), 0), MAX_SPEED_BUCKET))
 
 
 def hermite_read(buf: torch.Tensor, positions: torch.Tensor,

@@ -8,11 +8,28 @@ package vmaps the step over a lane axis; the port has no vmap over its
 hand-written kernels and needs none, because its banks already carry a
 leading dimension: the lanes fold into it (``RenderProgram(lanes=...)``,
 graph/engine.py).  A block of 8 lanes of the headline graph makes the
-kernel launches of one lane, each over 8 times the rows.  Automation is
-shared by the lanes, as the JAX package's ``block_inputs`` tiles one
-lane's inputs: a block lowers and copies one lane's inputs, once per
-device.  Per-lane divergent automation is not supported (the JAX package
-leaves it to callers who build their own inputs).
+kernel launches of one lane, each over 8 times the rows.
+
+A block's inputs are shared by the lanes or given per lane, as in the JAX
+package, whose step vmaps over ``[lanes, ...]`` inputs:
+
+* :meth:`BatchedRenderProgram.block_inputs` gives one lane's inputs,
+  shared by every lane (the JAX package tiles them): a block lowers and
+  copies them once per device;
+* for lanes that differ (stems, variations with their own automation,
+  notes, stops and seeks), a caller builds one program per lane from a
+  structurally equal graph (the same mixer tree, node names and types),
+  schedules each, and passes the sequence of their ``block_inputs(b)``,
+  lane-major, to :meth:`~BatchedRenderProgram.step` (or of their
+  ``stacked_inputs`` to ``scan_step`` / :meth:`render_scan`).  The lane
+  programs may be CPU programs: a lowering is host numpy.  A mesh of k
+  devices hands each shard its lanes' slice of the sequence.
+
+Two differences from the JAX package: every lane of a block must start at
+the same ``frame0`` (the port reads it on the host to choose code paths;
+JAX traces it), and a sequence whose lanes differ in structure (their
+parameter groups or rows, source paths, nodes, or lowered arrays that do
+not stack) raises ``ValueError`` naming the first difference.
 
 The JAX package chooses between packed and plain inputs by lane count,
 a trade of transfer latency against unpack cost on the TPU; the port
@@ -140,13 +157,28 @@ class BatchedRenderProgram:
         to its device once)."""
         return self.program.block_inputs(block_index)
 
+    def _split(self, inputs) -> list:
+        """Each shard's inputs: shared inputs whole, a sequence of per-lane
+        inputs (one per lane) in slices."""
+        if isinstance(inputs, dict):
+            return [inputs] * len(self.shards)
+        lanes = list(inputs)
+        if len(lanes) != self.lanes:
+            raise ValueError(f"{len(lanes)} lanes of inputs for "
+                             f"{self.lanes} lanes")
+        per = self.lanes // len(self.shards)
+        return [lanes[j * per:(j + 1) * per] for j in range(len(self.shards))]
+
     def step(self, states: list, inputs):
         """(states, inputs) -> (states, audio [lanes, ch, n]), or ``[1, ch,
         n]``, the sum of the lanes, with ``mixdown``; on the first device
-        of the mesh."""
+        of the mesh.  ``inputs``: one block's inputs, shared by the lanes
+        (:meth:`block_inputs`), or a sequence of ``lanes`` of them, lane k's
+        lowered by its own program of a structurally equal graph (module
+        docstring)."""
         new_states, outs = [], []
-        for shard, st in zip(self.shards, states):
-            st, y = shard.step(st, inputs)
+        for shard, st, x in zip(self.shards, states, self._split(inputs)):
+            st, y = shard.step(st, x)
             new_states.append(st)
             if self.mixdown:
                 y = torch.sum(y, dim=0, keepdim=True)
@@ -187,18 +219,29 @@ class BatchedRenderProgram:
         ``[lanes, channels, num_blocks * block_frames]``: the JAX package's
         ``lax.scan`` over blocks is a host loop over the stacked blocks
         here (nothing is compiled), and gives :meth:`render`'s arrays bit
-        for bit."""
+        for bit.  ``stacked_inputs``: one :meth:`stacked_inputs`, shared by
+        the lanes, or a sequence of ``lanes`` of them (the lane programs'
+        own ``stacked_inputs``)."""
         def scan(states, stacked):
+            shared = isinstance(stacked, dict)
+            blocks = len((stacked if shared else stacked[0])["frame0"])
             outs = []
-            for i in range(len(stacked["frame0"])):
+            for i in range(blocks):
                 states, audio = self.step(
-                    states, RenderProgram.block_of(stacked, i))
+                    states, RenderProgram.block_of(stacked, i) if shared
+                    else [RenderProgram.block_of(s, i) for s in stacked])
                 outs.append(audio)
             return states, torch.cat(outs, dim=-1)
         return scan
 
-    def render_scan(self, duration_frames: int, states=None) -> np.ndarray:
+    def render_scan(self, duration_frames: int, states=None,
+                    inputs=None) -> np.ndarray:
+        """``duration_frames`` of every lane through :attr:`scan_step`:
+        numpy [lanes, ch, frames].  ``inputs``: the stacked inputs of the
+        blocks that cover it, shared or per lane (:attr:`scan_step`); by
+        default the program's own, shared."""
         states = states if states is not None else self.init_states()
-        _, audio = self.scan_step(
-            states, self.stacked_inputs(self._num_blocks(duration_frames)))
+        if inputs is None:
+            inputs = self.stacked_inputs(self._num_blocks(duration_frames))
+        _, audio = self.scan_step(states, inputs)
         return audio[..., :duration_frames].to(torch.float32).cpu().numpy()

@@ -22,7 +22,9 @@ from .headline import SAMPLE_RATE, tone
 VOICES = 64
 
 
-def sampler_graph() -> Mixer:
+def sampler_graph(transpose: int = 0) -> Mixer:
+    """The sampler and its notes, each moved by ``transpose`` semitones
+    (within MIDI's 0-127)."""
     main = Mixer("main")
     s = Sampler(tone(), GeneratorPlaybackOptions(voices=VOICES),
                 envelope=AhdsrConfig(attack=0.01, decay=0.3, sustain=0.6,
@@ -30,15 +32,17 @@ def sampler_graph() -> Mixer:
     rng = np.random.default_rng(0)
     for k in range(VOICES):
         t = k * 480
-        nid = s.note_on(int(rng.integers(36, 84)), float(rng.uniform(0.4, 1.0)),
-                        time=t)
+        note = int(np.clip(rng.integers(36, 84) + transpose, 0, 127))
+        nid = s.note_on(note, float(rng.uniform(0.4, 1.0)), time=t)
         s.note_off(nid, time=t + 400000)  # held across the first 3 blocks
     main.add_source(s)
     return main
 
 
-def sampler_program(block_frames: int = 131072, device=None) -> RenderProgram:
+def sampler_program(block_frames: int = 131072, device=None,
+                    transpose: int = 0) -> RenderProgram:
     """The sampler as a program at 48 kHz stereo, on the config's device,
-    the CUDA card, unless ``device`` says otherwise."""
+    the CUDA card, unless ``device`` says otherwise; ``transpose`` moves
+    its notes (:func:`sampler_graph`)."""
     config = EngineConfig(sample_rate=SAMPLE_RATE, block_frames=block_frames)
-    return RenderProgram(sampler_graph(), config, device=device)
+    return RenderProgram(sampler_graph(transpose), config, device=device)
