@@ -3,8 +3,9 @@ against its plain PyTorch version on the card, then render the headline
 mixer graph, the mastering chain, the 64-voice sampler, the play_file path
 (preloaded and streamed), the granular sampler, the live Player, the
 synth path and the headline graph as 8 batched lanes, shared and with
-per-lane inputs, at full width on the card, render the port's examples
-and drive its output devices, and check them.
+per-lane inputs, and the headline and mastering graphs split over a
+two-entry mesh, at full width on the card, render the port's examples and
+drive its output devices, and check them.
 
     python3 chip_smoke.py
 
@@ -122,7 +123,19 @@ phase fails.  Phases:
    and one lane and the 8 lanes timed back to back (1, 8, 8, 1); then
    the sampler (config 2) as 4 lanes with its notes transposed by 0, 7,
    -5 and 12 semitones, 1 ramp_read per block, each lane equal to its own
-   card render within 1e-6;
+   card render within 1e-6; and 3 headline lanes (schedules 0, 6 and 7)
+   whose last two start one block later, each equal to its own program on
+   the card over the same blocks within 1e-6; (i) one graph's banks split
+   over a mesh (``GraphShardedProgram``): the headline graph and the
+   mastering chain at full width, 4 blocks on ``[cuda:0, cuda:0]`` (and on
+   ``data_mesh(2)`` when two cards are present) with the launch counters
+   set to 0 just before and read just after (ramp_read exactly once per
+   shard per block), each equal to its unsharded program on the card bit
+   for bit, the current CUDA device unchanged after every step, wall per
+   block beside the unsharded program's; the headline at 8192-frame blocks
+   on ``[cuda:0, "cpu"]`` within -90 dB of the card (a tensor left on the
+   wrong device raises); 4 headline lanes on a 2D mesh (2 lane shards x 2
+   entries) equal to the 4 lanes on the card bit for bit;
 7. under ``torch.profiler``, after every timed render (a profiler session
    slows the launches that follow it in the process): one more block of
    each path, which gives the device operations, the host-to-device
@@ -134,10 +147,13 @@ phase fails.  Phases:
    logged with where they come from: the synth Player fails the run on a
    ``cudaStreamSynchronize`` or a reported call;
    the batched headline's block is one step of its 8 lanes, the per-lane
-   headline's one step of 8 lanes' own inputs;
+   headline's one step of 8 lanes' own inputs, a graph-sharded path's one
+   step of its split program on ``[cuda:0, cuda:0]``;
    each kernel's kernel-only device time (the profiler's events of its own
    launches, and their number per call) and its share of its bound, at
-   each path's shape (``batched_headline``: B=128, R=64, R=16) and at the
+   each path's shape (``batched_headline``: B=128, R=64, R=16;
+   ``graph_sharded``: a shard's B=8 and R=4, the master chains' shapes
+   otherwise) and at the
    byte-bound shapes off the paths (iir2 and iir1 at R=40); and the
    headline graph's rate once more, after the profiler.
 
@@ -185,7 +201,9 @@ from phonic_tpu_torch.play_file import (
 from phonic_tpu_torch.outputs.null import NullOutput
 from phonic_tpu_torch.outputs.rt import RtOutput
 from phonic_tpu_torch.outputs.web import WebOutput, _wav_stream_header
-from phonic_tpu_torch.parallel.mesh import BatchedRenderProgram
+from phonic_tpu_torch.parallel.mesh import (
+    BatchedRenderProgram, GraphShardedProgram, data_mesh,
+)
 from phonic_tpu_torch.player import Player, PlayerConfig
 from phonic_tpu_torch.player_rt import (
     BLOCK_FRAMES as PLAYER_BLOCK, player_rt_player,
@@ -388,6 +406,7 @@ RAMP_CASES = (
     (1, 1, 1, 48001, PLAY_BLOCK, "play_file", "loop"),
     (16, 1, 16, 26656, BLOCK, "headline", "ramps"),
     (16 * LANES, 1, 16, 26656, BLOCK, "batched_headline", "ramps"),
+    (8, 1, 8, 26656, BLOCK, "graph_sharded", "ramps"),
     (16, 1, 16, 26656, PLAYER_BLOCK, "player", "ramps"),
     (4, 1, 4, 48001, BLOCK, "mastering", "ramps"),
     (16, 1, 16, 26656, 1000, None, "ramps"),
@@ -467,6 +486,7 @@ def check_kernels(dev):
     # (rows that start unaligned), one row and forty
     for r, t, path in ((8, BLOCK, "headline"),
                        (8 * LANES, BLOCK, "batched_headline"),
+                       (4, BLOCK, "graph_sharded"),
                        (2, 8192, "mastering"),
                        (8, PLAYER_BLOCK, "player"), (64, BLOCK, "synth_64v"),
                        (2, BLOCK, "synth_64v/filter"),
@@ -1176,6 +1196,160 @@ def divergent_phase(dev, prog, ref):
     return launches, batched, states, lanes
 
 
+def frames_later_lanes(dev):
+    """Phase 6h, lanes at different frames: the headline graph as 3 lanes
+    with schedules 0, 6 and 7, lanes 6 and 7 fed their CPU programs'
+    blocks one block later than lane 0's; each lane against its own
+    program on the card stepped from ``init_state`` over the same blocks,
+    within 1e-6."""
+    ks, offsets = (0, 6, 7), (0, 1, 1)
+    lanes = [headline_lane(k, "cpu") for k in ks]
+    batched = BatchedRenderProgram(
+        mixer_graph_program(block_frames=BLOCK, device=dev), lanes=len(ks))
+    states, outs = batched.init_states(), []
+    for b in range(2):
+        states, y = batched.step(states, [p.block_inputs(b + o)
+                                          for p, o in zip(lanes, offsets)])
+        outs.append(y)
+    audio = torch.cat(outs, dim=-1).cpu().numpy()
+    errs = []
+    for i, (k, o) in enumerate(zip(ks, offsets)):
+        own = headline_lane(k, dev)
+        st, ys = own.init_state(), []
+        for b in range(o, o + 2):
+            st, y = own.step(st, own.block_inputs(b))
+            ys.append(y)
+        want = torch.cat(ys, dim=-1).cpu().numpy()
+        check_audio(f"lanes at other frames, lane {i}", want, (2, 2 * BLOCK))
+        errs.append(float(np.abs(audio[i] - want).max()))
+    log(f"  lanes {ks} starting at blocks {offsets}: each vs its own program "
+        f"on the card over the same blocks: max_abs_err {errs}")
+    if not max(errs) <= 1e-6:
+        raise RuntimeError("lanes at other frames: a lane differs from its "
+                           "own program")
+
+
+def warm(prog):
+    """One block from ``init_state``, dropped: allocator and library
+    start-up."""
+    prog.step(prog.init_state(), prog.block_inputs(0))
+    torch.cuda.synchronize()
+
+
+def sharded_render(prog, blocks):
+    """``blocks`` blocks of a program (sharded or not) from its
+    ``init_state`` on the host clock; fails unless the current CUDA device
+    is the same after each step.  Returns (audio, wall ms per block)."""
+    before = torch.cuda.current_device()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, outs = prog.init_state(), []
+    for b in range(blocks):
+        st, y = prog.step(st, prog.block_inputs(b))
+        if torch.cuda.current_device() != before:
+            raise RuntimeError(f"a step moved the current device from "
+                               f"{before} to {torch.cuda.current_device()}")
+        outs.append(y)
+    audio = torch.cat(outs, dim=-1).cpu().numpy()
+    return audio, (time.perf_counter() - t0) * 1e3 / blocks
+
+
+GRAPH_SHARDED = {"headline": mixer_graph_program,
+                 "mastering": mastering_program}
+
+
+def graph_sharded_phase(dev):
+    """Phase 6i: one graph's banks split over a mesh
+    (``GraphShardedProgram``).  The headline graph and the mastering
+    chain at full width (131072-frame blocks, 4 blocks) on ``[cuda:0,
+    cuda:0]``, each driven with the launch counters set to 0 just before
+    and read just after (ramp_read exactly once per shard per block, every
+    kernel of the unsharded path launched), and bit for bit equal to its
+    unsharded program on the card, with the current device unchanged
+    after every step; the same on ``data_mesh(2)`` when two cards are
+    present; the headline at 8192-frame blocks on ``[cuda:0, "cpu"]`` (the
+    banks' second halves on the CPU: a placement check, where a tensor on
+    the wrong device raises) within -90 dB of the unsharded card render;
+    and 4 headline lanes on a 2D mesh (2 lane shards, each split over 2
+    entries) equal to the 4 lanes on the card.  Logs each path's launches
+    and wall per block beside the unsharded program's.  Returns the
+    launches of the two full-width paths on ``[cuda:0, cuda:0]`` and their
+    sharded programs (profiled in phase 7)."""
+    launches, sharded = {}, {}
+    meshes = [("[cuda:0, cuda:0]", [dev, dev])]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(("data_mesh(2)", data_mesh(2)))
+    else:
+        log("  one card: data_mesh(2) not run")
+    for name, make in GRAPH_SHARDED.items():
+        ref = make(block_frames=BLOCK, device=dev)
+        warm(ref)
+        reset_counters()
+        want, wall = sharded_render(ref, 4)
+        plain = read_counters()
+        log(f"  {name} unsharded: {wall:.1f} ms per block")
+        for label, mesh in meshes:
+            prog = GraphShardedProgram(make(block_frames=BLOCK, device=dev),
+                                       mesh)
+            warm(prog)
+            reset_counters()
+            got, wall = sharded_render(prog, 4)
+            counts = read_counters()
+            split = {k: sorted(v) for k, v in prog._splits.items()}
+            log(f"  {name} on {label}: banks split {split}; {wall:.1f} ms "
+                f"per block; launches per block "
+                f"{ {k: c / 4 for k, c in counts.items()} } against the "
+                f"unsharded {({k: c / 4 for k, c in plain.items()})}")
+            if counts["ramp_read"] != 4 * len(mesh):
+                raise RuntimeError(f"{name} on {label}: {counts['ramp_read']} "
+                                   f"ramp_reads over 4 blocks, want "
+                                   f"{4 * len(mesh)}")
+            idle = [k for k, c in plain.items() if c and not counts[k]]
+            if idle:
+                raise RuntimeError(f"{name} on {label}: kernels of the path "
+                                   f"not launched: {idle}")
+            if not np.array_equal(got, want):
+                raise RuntimeError(f"{name} on {label}: differs from the "
+                                   "unsharded program on the card, max_abs_err "
+                                   f"{float(np.abs(got - want).max()):.3e}")
+            log(f"  {name} on {label}: equal to the unsharded program bit "
+                "for bit; current device unchanged after every step")
+            if label.startswith("[cuda:0"):
+                launches[name] = counts
+                sharded[name] = prog
+
+    small = 8192
+    ref = mixer_graph_program(block_frames=small, device=dev)
+    warm(ref)
+    want, _ = sharded_render(ref, 2)
+    mixed = GraphShardedProgram(
+        mixer_graph_program(block_frames=small, device=dev), [dev, "cpu"])
+    warm(mixed)
+    got, wall = sharded_render(mixed, 2)
+    err, peak = float(np.abs(got - want).max()), float(np.abs(want).max())
+    log(f"  headline on [cuda:0, cpu] at {small}-frame blocks: max_abs_err "
+        f"{err:.3e} vs the card, peak {peak:.4f}, "
+        f"{20 * np.log10(max(err, 1e-30) / peak):.1f} dB; {wall:.1f} ms per "
+        "block")
+    if not err <= DB90 * peak:
+        raise RuntimeError("headline on [cuda:0, cpu] disagrees with the card")
+
+    lanes = 4
+    one = BatchedRenderProgram(mixer_graph_program(block_frames=BLOCK,
+                                                   device=dev), lanes=lanes)
+    want = one.render(2 * BLOCK)
+    two_d = BatchedRenderProgram(
+        mixer_graph_program(block_frames=BLOCK, device=dev), lanes=lanes,
+        mesh=[[dev, dev], [dev, dev]])
+    got = two_d.render(2 * BLOCK)
+    if got.shape != (lanes, 2, 2 * BLOCK) or not np.array_equal(got, want):
+        raise RuntimeError("2D mesh: the lanes differ from the unsharded "
+                           "lanes")
+    log(f"  {lanes} headline lanes on a 2D mesh (2 lane shards x 2): equal "
+        "to the lanes on one card bit for bit")
+    return launches, sharded
+
+
 def against_cpu_ref(name, audio, ref):
     """Blocks 0-1 of ``audio`` against a CPU render, to -90 dB of each
     block's peak."""
@@ -1485,6 +1659,12 @@ def kernel_report(measured, off_path, paths):
         if "batched_headline" in by_path and "divergent_headline" in paths:
             # per-lane inputs: the same kernels at the same shapes
             by_path["divergent_headline"] = dict(by_path["batched_headline"])
+        if "graph_sharded" not in by_path and "graph_sharded" in paths:
+            # the split keeps the master chains whole on the first device:
+            # the mastering chain's dynamics and the headline's iir1 run
+            # at their unsharded shapes
+            by_path["graph_sharded"] = dict(
+                by_path["headline" if name == "iir1" else "mastering"])
         for key, nums in by_path.items():
             # a path's second shape ("synth_64v/filter") shares its launches
             launches = paths.get(key.split("/")[0])
@@ -1572,12 +1752,19 @@ def main():
     phase(f"6h: the headline graph as {LANES} lanes, each its own inputs")
     paths["divergent_headline"], divergent, div_states, div_lanes = \
         divergent_phase(dev, progs["headline"], refs["headline"])
+    frames_later_lanes(dev)
+    phase("6i: one graph's banks split over a mesh (GraphShardedProgram)")
+    split_launches, split_progs = graph_sharded_phase(dev)
+    paths["graph_sharded"] = {k: sum(c[k] for c in split_launches.values())
+                              for k in COUNTERS}
     # a profiler session leaves launches slower for the rest of the process,
     # so every profiled number comes after the timed renders
     phase("7: under the profiler")
     for name, prog in progs.items():
         device_busy(name, prog)
     device_busy("batched_headline", batched.shards[0])
+    for name, prog in split_progs.items():
+        device_busy(f"graph_sharded_{name} on [cuda:0, cuda:0]", prog)
     # a per-lane block after the timed ones: the smoothers already per lane
     log_busy("divergent_headline", *profile_block(lambda: divergent.step(
         div_states, [p.block_inputs(4) for p in div_lanes])[1].cpu()))
@@ -1589,6 +1776,9 @@ def main():
     tmp.cleanup()
 
     log(f"done in {time.perf_counter() - START:.1f} s")
+    # the card's name and power limit again, beside the numbers (a caller
+    # that keeps only the end of the output still sees them)
+    log(smi.stdout.strip().splitlines()[0])
     log(json.dumps(kernel_report(measured, off_path, paths)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -66,6 +66,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -353,11 +355,11 @@ __global__ void __launch_bounds__(kThreads)
 template <class M>
 int launch(int device, Streams<M::kStreams> in, const float* st0, float* out,
            float* st_out, int rows, long long n, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dynamics_kernel<M>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes<M>());
+  DeviceGuard on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t err = cudaFuncSetAttribute(
+      dynamics_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<M>());
   if (err != cudaSuccess) return (int)err;
   dynamics_kernel<M><<<rows, kThreads, smem_bytes<M>(), (cudaStream_t)stream>>>(
       in, st0, out, st_out, n);
@@ -383,11 +385,11 @@ extern "C" int phonic_gate(int device, const float* in_db, const float* attack,
                            const float* range_db, const float* hold_samples,
                            const float* state0, float* gains_db, float* state,
                            int rows, long long n, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(gate_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)gate_smem_bytes());
+  DeviceGuard on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t err = cudaFuncSetAttribute(
+      gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)gate_smem_bytes());
   if (err != cudaSuccess) return (int)err;
   gate_kernel<<<rows, kThreads, gate_smem_bytes(), (cudaStream_t)stream>>>(
       {{in_db, attack, release, threshold, range_db, hold_samples}}, state0,

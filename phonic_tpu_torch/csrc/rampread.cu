@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -208,10 +210,11 @@ extern "C" int phonic_ramp_read(int device, const float* buf,
                                 const int* smap, const float* pos, float* out,
                                 int sources, int channels, int frames,
                                 int lanes, int n, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  DeviceGuard on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
   int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaError_t err = cudaDeviceGetAttribute(
+      &sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   const long long items = (long long)lanes * ((n + kChunk - 1) / kChunk);
   const long long wanted = (items + kWarps - 1) / kWarps;

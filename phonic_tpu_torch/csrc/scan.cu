@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -475,11 +477,11 @@ int launch(void (*kernel)(Io<A>, float*, long long, long long, int, int,
                           unsigned),
            int device, const Io<A>& io, float* scratch, long long words,
            int rows, long long t, unsigned epoch, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  DeviceGuard on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
   const size_t smem = sizeof(float) * Traits<A>::kIn * kSeg;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nseg = segments(t);
   kernel<<<rows * nseg, kThreads, smem, (cudaStream_t)stream>>>(

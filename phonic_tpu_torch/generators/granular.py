@@ -231,7 +231,7 @@ _PICK = ("held", "speed", "vol", "pan", "size_ms", "variation", "spray",
 def granular_voice_alloc(
     state: dict,
     *,
-    frame0: int,  # global frame of the chunk's start (a host int)
+    frame0,  # global frame of the chunk's start: a host int, or int [V]
     n: int,
     sr: int,
     frames: int,  # source length in frames (positions fold on this circle)
@@ -262,7 +262,12 @@ def granular_voice_alloc(
     v = held.shape[0]
     f32 = torch.float32
     ii = torch.arange(n, dtype=torch.int64, device=dev)
-    gframes = frame0 + ii
+    # per-voice start frames (lanes that start at different frames) broadcast
+    # as [V, 1] against [V, P] and [V, 1, n] against the grains' [V, P, n]
+    per_row = isinstance(frame0, torch.Tensor)
+    f0_col = frame0[:, None] if per_row else frame0
+    gframes = f0_col + ii  # [n] or [V, n]
+    gframes3 = gframes[:, None, :] if per_row else gframes
     note_start = torch.as_tensor(note_start, device=dev).to(torch.int64)
     seed = torch.as_tensor(seed, device=dev).to(torch.int64).expand(v)
 
@@ -322,7 +327,8 @@ def granular_voice_alloc(
     floats = torch.stack([state[k] for k in FLOAT_SLOTS], dim=1)  # [V, 6, P]
     rng = state["rng_count"].to(torch.int64)
     seq_next = torch.where((state["seq_next"] < frame0) | fresh,
-                           torch.clamp(note_start, min=frame0),
+                           torch.maximum(note_start, frame0) if per_row
+                           else torch.clamp(note_start, min=frame0),
                            state["seq_next"].to(torch.int64))
     # a step's 7 draws hash (seed, rng * 8 + i), and rng advances by at most
     # one per step: draw every counter the chunk can reach at once, and
@@ -386,7 +392,7 @@ def granular_voice_alloc(
         # BEFORE this chunk: otherwise the overwrite would erase an
         # unrendered grain.
         g_trig = ints[:, 0]
-        free = (g_trig == NEVER) | (g_trig + ints[:, 1] <= frame0)
+        free = (g_trig == NEVER) | (g_trig + ints[:, 1] <= f0_col)
         do = valid & free.any(dim=1)
         slot = (free & (torch.cumsum(free.to(torch.int32), dim=1) == 1)
                 & do[:, None])[:, None, :]  # [V, 1, P]
@@ -406,11 +412,11 @@ def granular_voice_alloc(
     # --- render all grain slots [V, P, n] ----------------------------------
     g_trig, g_dur, g_wmode = ints.unbind(1)
     g_pos0, g_inc, g_winc, g_vol, g_pan, g_loop = floats.unbind(1)
-    local = gframes - g_trig[..., None]
+    local = gframes3 - g_trig[..., None]
     g_active = (local >= 0) & (local < g_dur[..., None])
     # hard-cut grains of the previous note at a steal (voice reset)
     ns = note_start[:, None, None]
-    g_active &= ~((g_trig[..., None] < ns) & (gframes >= ns))
+    g_active &= ~((g_trig[..., None] < ns) & (gframes3 >= ns))
 
     localf = local.to(f32)
     wphase = torch.clamp(localf * g_winc[..., None], 0.0, 1.0)

@@ -746,7 +746,7 @@ class Sampler(Generator):
                 "frac": end_pos - new_base}, mix
 
     def process_granular(self, state, params, voices, smax: float,
-                         frame0: int, read, ctx: BuildCtx):
+                         frame0, read, ctx: BuildCtx):
         """Render a granular sampler, a generator pool of one, with the
         modulation matrix feeding the 7 granular targets.  The state has a
         leading dimension L, the sampler's instances in a lane-batched
@@ -763,7 +763,8 @@ class Sampler(Generator):
         the block is read in ONE ``read`` call afterwards ([V*POOL, n]
         positions -> [V*POOL, 1, n], the pool's ramp_read; [L*V*POOL, n]
         for L instances), then mixed with each chunk's pans and shaped by
-        the voice AHDSR.  ``frame0`` is the block's global start frame.
+        the voice AHDSR.  ``frame0`` is the block's global start frame, a
+        host int, or each instance's as an int64 tensor [L].
         Returns (new state, audio [L, ch, n])."""
         n = ctx.block_frames
         sr = ctx.sample_rate
@@ -785,6 +786,8 @@ class Sampler(Generator):
 
             def first(x):
                 return x[:, :1]
+        if isinstance(frame0, torch.Tensor):  # each voice's instance's
+            frame0 = frame0.repeat_interleave(nv)
         frames = len(self._mono_buffer(sr))
         # runtime loop range, normalized over the source length
         inv_len = np.float32(1.0 / float(self.buffer.frames))

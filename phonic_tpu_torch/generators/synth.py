@@ -163,7 +163,7 @@ class SynthGenerator(Generator):
         self._sr = ctx.sample_rate
         return {"synth": self.synth.init(ctx, self.options.voices)}
 
-    def render_lanes(self, state, params, inputs, live, frame0: int,
+    def render_lanes(self, state, params, inputs, live, frame0,
                      ctx: BuildCtx):
         """Render the generator (a pool of one: leading dimension 1 on the
         state, the parameters and the voice arrays), its V voices in one

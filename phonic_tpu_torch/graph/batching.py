@@ -21,6 +21,8 @@ running state.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -30,6 +32,7 @@ from ..ops.buffer import remap_channels
 from ..ops.convert import panning_factors
 from ..ops.precision import ds_add
 from ..sources.file import FileSource, _host_fade_log1m
+from .nodes import global_frames
 
 
 def group_key(src: FileSource):
@@ -114,6 +117,27 @@ class FileBatch:
             "frac_lo": torch.zeros(s, dtype=torch.float32, device=dev),
         }
 
+    def shard(self, members, device) -> "FileBatch":
+        """The bank's sources ``members`` (every instance of each) as a
+        bank of their own on ``device``, for a bank split over devices
+        (``parallel/mesh.GraphShardedProgram``): its buffers and per-lane
+        metadata are this bank's rows, and its step bound and sinc table
+        stay this bank's, so each row renders as it does here."""
+        view = copy.copy(self)
+        view.ctx = self.ctx._replace(device=device)
+        rows = torch.as_tensor(member_rows(members, len(self.sources),
+                                           self.lanes), device=self.ctx.device)
+        for k in ("frames", "start_time", "repeat", "loop_start", "loop_end",
+                  "ratio", "fade_in_log1m", "fade_out_log1m"):
+            setattr(view, k, getattr(self, k)[rows].to(device))
+        idx = torch.as_tensor(members, device=self.ctx.device)
+        view.buffers = self.buffers[idx].to(device)
+        view.smap = torch.arange(len(members), dtype=torch.int32,
+                                 device=device).repeat(self.lanes)
+        view.sinc = None if self.sinc is None else self.sinc.to(device)
+        view.paths = [self.paths[i] for i in members]
+        return view
+
     def _fold(self, ki, fr):
         """Linear source position (int frames ki + frac fr) -> buffer
         position + live mask (reference loop semantics:
@@ -161,13 +185,14 @@ class FileBatch:
                                base)
         return torch.remainder(base, frames)
 
-    def lane_pos(self, state, frame0: int, speed, kill_at, seek_flag,
+    def lane_pos(self, state, frame0, speed, kill_at, seek_flag,
                  seek_pos, smax: float):
         """Per-lane read positions ``[S, n]``, the activity mask and the
-        next block's position state."""
+        next block's position state.  ``frame0``: the block's start frame,
+        a host int, or each lane's as an int64 tensor [S]."""
         n = self.ctx.block_frames
         dev = self.ctx.device
-        gframes = frame0 + torch.arange(n, dtype=torch.int64, device=dev)
+        gframes = global_frames(frame0, n, dev)
         active = (gframes >= self.start_time) & (gframes < kill_at[:, None])
 
         seek = seek_flag > 0.5
@@ -204,11 +229,11 @@ class FileBatch:
         return pos, mask, {"base": new_base, "frac": total - carry,
                            "frac_lo": lo_new}
 
-    def lane_post(self, audio, mask, frame0: int, volume, panning, stop_at):
+    def lane_post(self, audio, mask, frame0, volume, panning, stop_at):
         """Mask, channel remap, volume with fades, and pan: [S, ch, n]."""
         ctx = self.ctx
         n = ctx.block_frames
-        gframes = frame0 + torch.arange(n, dtype=torch.int64, device=ctx.device)
+        gframes = global_frames(frame0, n, ctx.device)
         audio = remap_channels(audio * mask[:, None, :], ctx.channels)
         gain = volume
         if self.has_fade_in:
@@ -231,9 +256,10 @@ class FileBatch:
                               dim=1)
         return audio
 
-    def render(self, state, frame0: int, volume, panning, speed, stop_at,
+    def render(self, state, frame0, volume, panning, speed, stop_at,
                kill_at, seek_flag, seek_pos, speeds_differ: bool = False):
-        """Parameters ``[S, n]``; stop/kill frames and seeks ``[S]``.
+        """Parameters ``[S, n]``; stop/kill frames and seeks ``[S]``;
+        ``frame0`` a host int or each lane's start frame ``[S]``.
         ``speeds_differ``: the instances' speeds come from their own
         schedules, not the bank's sources' (a lane-batched program's
         per-lane inputs), so the step bound is the largest bucket's: like
@@ -253,6 +279,13 @@ class FileBatch:
             audio = rampread.ramp_read(self.buffers, self.smap, pos)
         return new_state, self.lane_post(audio, mask, frame0, volume,
                                          panning, stop_at)
+
+
+def member_rows(members, size: int, lanes: int) -> np.ndarray:
+    """The rows of a bank of ``size`` members and ``lanes`` instances
+    (lane-major: row ``l * size + i``) that hold ``members``, in order."""
+    return (np.arange(lanes)[:, None] * size
+            + np.asarray(members)[None, :]).reshape(-1)
 
 
 def stack_states(states: list):
@@ -315,14 +348,40 @@ class LeafBatch:
             for i, r in enumerate(rows):
                 table[i, :, : r.shape[-1]] = r
             self.table = torch.as_tensor(table, device=dev)
-            self.smap = torch.repeat_interleave(
-                torch.arange(len(nodes), dtype=torch.int32, device=dev),
-                torch.tensor(lanes, device=dev),
-                output_size=sum(lanes)).repeat(self.lanes)
+            self.read_lanes = lanes  # each node's read lanes
+            self.smap = self._read_map(len(nodes), lanes, dev)
         rows = [getattr(s, "source_batch_statics", lambda c: {})(ctx)
                 for s in nodes] * self.lanes
         self.statics = {k: torch.as_tensor(np.stack([r[k] for r in rows]),
                                            device=dev) for k in rows[0]}
+
+    def _read_map(self, count: int, read_lanes, dev) -> torch.Tensor:
+        """Each read lane's row of the table: node i's lanes read row i,
+        for every instance."""
+        return torch.repeat_interleave(
+            torch.arange(count, dtype=torch.int32, device=dev),
+            torch.tensor(read_lanes, device=dev),
+            output_size=sum(read_lanes)).repeat(self.lanes)
+
+    def shard(self, members, device) -> "LeafBatch":
+        """The bank's nodes ``members`` (every instance of each) as a bank
+        of their own on ``device``, for a bank split over devices
+        (``parallel/mesh.GraphShardedProgram``): their table rows, read map
+        and statics.  The block's lowered arrays reach it sliced to its
+        rows, with the whole bank's step bound and live segments."""
+        view = copy.copy(self)
+        view.nodes = [self.nodes[i] for i in members]
+        view.paths = [self.paths[i] for i in members]
+        view.ctx = self.ctx._replace(device=device)
+        if self.table is not None:
+            idx = torch.as_tensor(members, device=self.ctx.device)
+            view.table = self.table[idx].to(device)
+            view.read_lanes = tuple(self.read_lanes[i] for i in members)
+            view.smap = view._read_map(len(members), view.read_lanes, device)
+        rows = torch.as_tensor(member_rows(members, len(self.nodes),
+                                           self.lanes), device=self.ctx.device)
+        view.statics = {k: v[rows].to(device) for k, v in self.statics.items()}
+        return view
 
     def init_state(self):
         """Each node's state, stacked: [L*G, ...] (a sampler's
@@ -387,11 +446,12 @@ class LeafBatch:
         return rampread.ramp_read(self.table, self.smap, positions)
 
     def render(self, state, params, voices: dict, smax, live: dict,
-               frame0: int):
+               frame0):
         """params: each node parameter [G, n]; voices, smax, live: the
         block's lowered arrays on the device and the host values of
-        :meth:`stack`; frame0: the block's global start frame.  Returns
-        (new state, out [G, ch, n])."""
+        :meth:`stack`; frame0: the block's global start frame, a host int,
+        or each lane's as an int64 tensor [G].  Returns (new state, out
+        [G, ch, n])."""
         if self.table is None:
             st = dict(state)
             statics = st.pop("_statics", {})

@@ -38,11 +38,19 @@ shared by the lanes or given per lane:
   from the first such block on (a shared block after it tiles its events
   over the lanes on the device), and each bank reads lane l's rows
   ``l * P + r``; stops, seeks, note arrays and effect inputs come from
-  each lane's dict.  Every lane of a block starts at the same ``frame0``,
-  which the host reads to choose code paths.
+  each lane's dict.  The lanes' blocks may start at different frames: a
+  block whose lanes' ``frame0`` differ gives every bank its rows' start
+  frames as a device tensor (``b{i}.f0`` / ``q{i}.f0``); otherwise the
+  banks take the one ``frame0`` as a host int.  No host decision reads
+  ``frame0``.
 
 Either way a block makes the launches of one instance, each over L times
 the rows.
+
+A program's banks (file banks, pools, sibling chains) may also be split
+over several devices by ``parallel/mesh.GraphShardedProgram``: ``_step``
+takes the splits, renders each shard's rows on its device and gathers the
+outputs back to the program's device before any sum over rows.
 
 The live path (the Player) steps with :meth:`RenderProgram.step_packed`:
 every host array a block needs travels in one pinned buffer, one
@@ -740,24 +748,18 @@ class RenderProgram:
     def _lane_inputs(self, inputs) -> Optional[list]:
         """None for a block's shared inputs (one dict); for per-lane inputs
         (a sequence of dicts) the list of them, checked against the
-        program: one per lane, every lane at the same ``frame0``, and each
-        lowered by a program of a structurally equal graph (the same
-        parameter groups and rows, source paths and nodes).  A
-        ``ValueError`` names the first difference."""
+        program: one per lane, each lowered by a program of a structurally
+        equal graph (the same parameter groups and rows, source paths and
+        nodes), at any ``frame0``.  A ``ValueError`` names the first
+        difference."""
         if isinstance(inputs, dict):
             return None
         lanes = list(inputs)
         if len(lanes) != self.lanes:
             raise ValueError(f"{len(lanes)} lanes of inputs for a program "
                              f"of {self.lanes} lanes")
-        frame0 = int(lanes[0]["frame0"])
         paths = set(self.source_paths)
         for k, d in enumerate(lanes):
-            if int(d["frame0"]) != frame0:
-                raise ValueError(
-                    f"lane {k}'s block starts at frame {int(d['frame0'])}, "
-                    f"lane 0's at {frame0}: the lanes of a block render the "
-                    "same frames")
             if set(d["params"]) != set(self._param_groups):
                 raise ValueError(
                     f"lane {k}'s parameter groups "
@@ -784,13 +786,15 @@ class RenderProgram:
         """The host arrays of a block's inputs that the step reads on the
         device, by name, and the host values derived from them that the
         step reads on the host (segment counts, a pool's layout and step
-        bound).  Values that pick code paths (the block's start frame, an
-        effect's flags) stay in ``inputs``.  Per-lane inputs give each
-        parameter group ``[L*P, K]`` event rows and every bank its lanes'
-        rows, lane-major."""
+        bound).  Values that pick code paths (an effect's flags) stay in
+        ``inputs``.  Per-lane inputs give each parameter group ``[L*P, K]``
+        event rows and every bank its lanes' rows, lane-major; lanes whose
+        blocks start at different frames give every bank its rows' start
+        frames (``b{i}.f0``, ``q{i}.f0``)."""
         n = self.ctx.block_frames
         arrays, host = {}, {}
         per = self._lane_inputs(inputs)
+        starts = per is not None and len({int(d["frame0"]) for d in per}) > 1
 
         def cat(get, dtype=None):  # a group's event rows
             if per is None:
@@ -822,6 +826,9 @@ class RenderProgram:
             arrays[f"b{bi}.seek_pos"] = lanes(
                 lambda d, ex, p: ex.get(p, {}).get("_seek_pos", 0.0),
                 np.float32)
+            if starts:
+                arrays[f"b{bi}.f0"] = lanes(lambda d, ex, p: d["frame0"],
+                                            np.int64)
         for pi, pool in enumerate(self.pools):
             # one instance's nodes (repeated on the device), or every lane's
             lowered = lane_dicts[:1] if per is None else lane_dicts
@@ -834,6 +841,10 @@ class RenderProgram:
                                  f"not stack: {e}") from None
             if flat is not None:
                 arrays[f"q{pi}"] = flat
+            if starts:
+                arrays[f"q{pi}.f0"] = np.array(
+                    [d["frame0"] for d, _ in lowered for _ in pool.paths],
+                    np.int64)
             host[f"q{pi}"] = (layout, smax, live)
         return arrays, host
 
@@ -930,11 +941,61 @@ class RenderProgram:
         inside it."""
         return self._step(state, packed.inputs, packed.host, packed.device)
 
-    def _step(self, state, inputs, host, dev):
+    @staticmethod
+    def _run_stages(effects, x, states, age0, limits, stage_params, ctx):
+        """A chain's effects (``effects``: one lane's, each run batched over
+        the chain's rows) over x [R, ch, n] from their ``states``; stage
+        i's parameters are ``stage_params(i)``.  Returns (states, silence
+        ages or None, output).
+
+        Under auto-bypass (``age0`` [stages, R] and ``limits`` given) each
+        (stage, row) keeps a silence age: a stage whose input is silent and
+        has been for longer than its limit passes its input through and
+        keeps its state.  The stage still runs and selects per row
+        (``torch.where``), so no branch reads a device value on the host;
+        for one lane this is the JAX package's per-effect ``lax.cond``, for
+        several its ``run_chain_frozen``."""
+        n = ctx.block_frames
+        sts, ages = [], []
+        for i, e0 in enumerate(effects):
+            pvals = stage_params(i)
+            st0 = states[i]
+            if age0 is not None:
+                silent = torch.amax(torch.abs(x), dim=(1, 2)) <= SILENCE
+                skip = silent & (age0[i] >= limits[i])
+                st, y = e0.process(st0, x, pvals, ctx)
+                x = torch.where(skip[:, None, None], x, y)
+                st = tree_map(lambda a, b: torch.where(
+                    skip.view((-1,) + (1,) * (a.dim() - 1)), a, b), st0, st)
+                ages.append(torch.where(silent, age0[i] + n, 0))
+            else:
+                st, x = e0.process(st0, x, pvals, ctx)
+            sts.append(st)
+        if age0 is None:
+            return sts, None, x
+        return sts, torch.clamp(torch.stack(ages), max=AGE_MAX), x
+
+    def _step(self, state, inputs, host, dev, split=None):
+        """The block step over the block's device arrays ``dev`` and host
+        values ``host`` (:meth:`_host_arrays`).
+
+        ``split``: the banks a ``GraphShardedProgram`` splits over its mesh
+        (parallel/mesh.py), ``{"file_batches" | "pools" | "chains": {index:
+        split}}``.  A split bank's state is a list of its shards' states,
+        its entries in ``dev`` and ``host`` lists of its shards' arrays,
+        each on its shard's device; its parameter rows and inputs go to each
+        shard as slices (``split.take``), and its outputs come back to the
+        program's device in row order (``split.run`` / ``split.gather``)
+        before anything sums over rows, so the result is the unsplit
+        program's bit for bit."""
         ctx = self.ctx
         n = ctx.block_frames
         lanes = self.lanes
+        split = split or {}
         per = None if isinstance(inputs, dict) else list(inputs)
+        # the banks take this one start frame as a host int, or their rows'
+        # own as a device tensor where the lanes' differ (``b{i}.f0``,
+        # ``q{i}.f0``); nothing on the host decides on it
         frame0 = int((per or [inputs])[0]["frame0"])
         # each lane's nodes' own inputs, lane-major
         extras = ([inputs.get("extra", {})] * lanes if per is None
@@ -956,11 +1017,22 @@ class RenderProgram:
         new_batches = []
         for bi, batch in enumerate(self.file_batches):
             sel = self._batch_rows[bi]
-            nb_state, out = batch.render(
-                state["file_batches"][bi], frame0, rows(sel["VOLU"]),
-                rows(sel["PANN"]), rows(sel["SPED"]), dev[f"b{bi}.stop"],
-                dev[f"b{bi}.kill"], dev[f"b{bi}.seek_flag"],
-                dev[f"b{bi}.seek_pos"], per_lane(sel["SPED"][0]))
+            args = [rows(sel["VOLU"]), rows(sel["PANN"]), rows(sel["SPED"])]
+            names = [f"b{bi}.{k}" for k in ("stop", "kill", "seek_flag",
+                                             "seek_pos")]
+            f0 = dev.get(f"b{bi}.f0", frame0)
+            differ = per_lane(sel["SPED"][0])
+            sp = split.get("file_batches", {}).get(bi)
+            if sp is None:
+                nb_state, out = batch.render(
+                    state["file_batches"][bi], f0, *args,
+                    *(dev[k] for k in names), differ)
+            else:
+                nb_state, out = sp.run(
+                    state["file_batches"][bi],
+                    lambda j, view, st: view.render(
+                        st, sp.pick(f0, j), *(sp.take(a, j) for a in args),
+                        *(dev[k][j] for k in names), differ))
             new_batches.append(nb_state)
             out = out.view((lanes, len(batch.paths)) + out.shape[1:])
             for i, p in enumerate(batch.paths):
@@ -968,10 +1040,22 @@ class RenderProgram:
         new_pools = []
         for pi, pool in enumerate(self.pools):
             params = {pid: rows(sel) for pid, sel in self._pool_rows[pi].items()}
-            layout, smax, live = host[f"q{pi}"]
-            pool_state, out = pool.render(
-                state["pools"][pi], params, pool.voices(dev.get(f"q{pi}"), layout),
-                smax, live, frame0)
+            f0 = dev.get(f"q{pi}.f0", frame0)
+            sp = split.get("pools", {}).get(pi)
+            if sp is None:
+                layout, smax, live = host[f"q{pi}"]
+                pool_state, out = pool.render(
+                    state["pools"][pi], params,
+                    pool.voices(dev.get(f"q{pi}"), layout), smax, live, f0)
+            else:
+                def shard(j, view, st, pi=pi, params=params, f0=f0, sp=sp):
+                    layout, smax, live = host[f"q{pi}"][j]
+                    flat = dev.get(f"q{pi}")
+                    return view.render(
+                        st, {k: sp.take(v, j) for k, v in params.items()},
+                        view.voices(None if flat is None else flat[j],
+                                    layout), smax, live, sp.pick(f0, j))
+                pool_state, out = sp.run(state["pools"][pi], shard)
             new_pools.append(pool_state)
             out = out.view((lanes, len(pool.paths)) + out.shape[1:])
             for i, p in enumerate(pool.paths):
@@ -980,44 +1064,43 @@ class RenderProgram:
         new_chains: list = [None] * len(self.chains)
         new_ages: list = [None] * len(self.chains)
         metered: list = []  # (mixer path, its post-effects signal)
+        bypass = self.config.auto_bypass
 
         def run_chain(cid, x):
             """Apply chain ``cid`` to x [L*G, ch, n]: effect i of every lane
-            runs as one batched call.
-
-            Under auto-bypass each (stage, lane) keeps a silence age: a stage
-            whose input is silent and has been for longer than its limit
-            passes its input through and keeps its state.  The stage still
-            runs and selects per lane (``torch.where``), so no branch reads a
-            device value on the host; for one lane this is the JAX package's
-            per-effect ``lax.cond``, for several its ``run_chain_frozen``."""
+            runs as one batched call (each shard's lanes, on a split
+            chain)."""
             c = self.chains[cid]
-            bypass = self.config.auto_bypass
-            if bypass:
-                age0, limits, ages = state["bypass"][cid], c["limits"], []
-            sts = []
-            for i, e0 in enumerate(c["effects"][0]):
+
+            def stage_params(i):
                 pvals = {pid: rows(sel) for pid, sel in c["params"][i].items()}
                 dicts = [ex.get(eps[i], {}) for ex in extras
                          for eps in c["effect_paths"]]
                 for k in sorted(set().union(*dicts)):
                     pvals[k] = np.stack([d.get(k, 0) for d in dicts])
-                st0 = state["chains"][cid][i]
-                if bypass:
-                    silent = torch.amax(torch.abs(x), dim=(1, 2)) <= SILENCE
-                    skip = silent & (age0[i] >= limits[i])
-                    st, y = e0.process(st0, x, pvals, ctx)
-                    x = torch.where(skip[:, None, None], x, y)
-                    st = tree_map(lambda a, b: torch.where(
-                        skip.view((-1,) + (1,) * (a.dim() - 1)), a, b), st0, st)
-                    ages.append(torch.where(silent, age0[i] + n, 0))
-                else:
-                    st, x = e0.process(st0, x, pvals, ctx)
+                return pvals
+
+            sp = split.get("chains", {}).get(cid)
+            if sp is None:
+                new_chains[cid], new_ages[cid], x = self._run_stages(
+                    c["effects"][0], x, state["chains"][cid],
+                    state["bypass"][cid] if bypass else None,
+                    c.get("limits"), stage_params, ctx)
+                return x
+            pv = [stage_params(i) for i in range(len(c["effects"][0]))]
+            sts, ages, outs = [], [], []
+            for j, view in enumerate(sp.views):
+                st, age, y = self._run_stages(
+                    c["effects"][0], sp.take(x, j), state["chains"][cid][j],
+                    state["bypass"][cid][j] if bypass else None,
+                    view.get("limits"),
+                    lambda i, j=j: {k: sp.take(v, j) for k, v in pv[i].items()},
+                    view["ctx"])
                 sts.append(st)
-            new_chains[cid] = sts
-            if bypass:
-                new_ages[cid] = torch.clamp(torch.stack(ages), max=AGE_MAX)
-            return x
+                ages.append(age)
+                outs.append(y)
+            new_chains[cid], new_ages[cid] = sts, ages
+            return sp.gather(outs)
 
         def render_pre(m: _FrozenMixer, me: str):
             """Children and sources summed, BEFORE m's own effect chain:

@@ -37,6 +37,15 @@ class BuildCtx(NamedTuple):
     device: torch.device = torch.device("cpu")
 
 
+def global_frames(frame0, n: int, device) -> torch.Tensor:
+    """A block's global frame numbers ``frame0 + arange(n)``: [n] for a
+    host int, [rows, n] for an int64 tensor of each row's start frame (a
+    lane-batched block whose lanes start at different frames)."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    return frame0[:, None] + i if isinstance(frame0, torch.Tensor) \
+        else frame0 + i
+
+
 _counter = itertools.count()
 
 

@@ -1,5 +1,5 @@
-"""Lane-batched rendering: independent instances of one graph in every
-launch (port of ``phonic_tpu/parallel/mesh.py``).
+"""Lane-batched rendering and one graph split over devices (port of
+``phonic_tpu/parallel/mesh.py``).
 
 ``BatchedRenderProgram`` renders ``lanes`` independent instances of a
 program's graph (stems, variations, preview renders) block by block:
@@ -17,31 +17,41 @@ package, whose step vmaps over ``[lanes, ...]`` inputs:
   shared by every lane (the JAX package tiles them): a block lowers and
   copies them once per device;
 * for lanes that differ (stems, variations with their own automation,
-  notes, stops and seeks), a caller builds one program per lane from a
-  structurally equal graph (the same mixer tree, node names and types),
-  schedules each, and passes the sequence of their ``block_inputs(b)``,
+  notes, stops and seeks, or blocks that start at other frames), a caller
+  builds one program per lane from a structurally equal graph (the same
+  mixer tree, node names and types), schedules each, and passes the
+  sequence of their ``block_inputs(b)`` (each lane any block of its own),
   lane-major, to :meth:`~BatchedRenderProgram.step` (or of their
   ``stacked_inputs`` to ``scan_step`` / :meth:`render_scan`).  The lane
   programs may be CPU programs: a lowering is host numpy.  A mesh of k
   devices hands each shard its lanes' slice of the sequence.
 
-Two differences from the JAX package: every lane of a block must start at
-the same ``frame0`` (the port reads it on the host to choose code paths;
-JAX traces it), and a sequence whose lanes differ in structure (their
-parameter groups or rows, source paths, nodes, or lowered arrays that do
-not stack) raises ``ValueError`` naming the first difference.
+A sequence whose lanes differ in structure (their parameter groups or
+rows, source paths, nodes, or lowered arrays that do not stack) raises
+``ValueError`` naming the first difference; the JAX package fails to
+stack such lanes.
 
 The JAX package chooses between packed and plain inputs by lane count,
 a trade of transfer latency against unpack cost on the TPU; the port
 always copies the block's arrays as its single programs do, so that
 choice has no counterpart.
 
-A mesh is a list of torch devices (:func:`data_mesh`).  A mesh of k
-devices splits the lanes into k contiguous shards, each a folded program
-on its own device; their audio is gathered on the first device, and
-``mixdown`` sums every lane there.  ``GraphShardedProgram`` (one graph's
-banks split over devices) is the program itself on a mesh of one device
-and is not implemented over several.
+A mesh is a list of torch devices (:func:`data_mesh`); entries may repeat.
+A mesh of k devices splits the lanes into k contiguous shards, each a
+folded program on its own device; their audio is gathered on the first
+device, and ``mixdown`` sums every lane there.
+
+``GraphShardedProgram`` splits one graph's banks over a mesh, as the JAX
+package's model-parallel program shards its internal batch axes: every
+file bank, pool and sibling effect chain whose member count the mesh
+divides renders as k contiguous groups of its members, each on its device
+with its own kernel launches; everything else (smoothers, scalar node
+state, mixers, metering, the master chain) runs on the first device, where
+the shards' outputs are gathered in row order before any sum over rows, so
+the audio is the unsharded program's bit for bit.  A 2D mesh (a list of
+rows) given to ``BatchedRenderProgram`` makes each row a lane shard whose
+banks split over the row's devices: the JAX package's lanes x graph
+layout.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..graph.batching import member_rows
 from ..graph.engine import RenderProgram, tree_map
 
 Device = Union[str, torch.device]
@@ -73,79 +84,306 @@ def data_mesh(n_devices: Optional[int] = None, axis: str = "data",
     return [torch.device("cuda", i) for i in range(n)]
 
 
+def _device(d: Device) -> torch.device:
+    """``d`` as a torch device; a CUDA device without an index is the
+    current card (so ``"cuda"`` and ``cuda:0`` name one mesh entry)."""
+    dev = resolve_device(d)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _mesh_devices(mesh: Sequence[Device]) -> list[torch.device]:
-    devices = [resolve_device(d) for d in mesh]
+    devices = [_device(d) for d in mesh]
     if not devices:
         raise ValueError("a mesh needs at least one device")
     return devices
 
 
-def graph_state_shardings(program: RenderProgram, mesh: Sequence[Device],
+def _is_2d(mesh) -> bool:
+    return bool(mesh) and all(isinstance(r, (list, tuple)) for r in mesh)
+
+
+class BankSplit:
+    """One bank of a program (a file bank, a pool or a sibling chain of G
+    members and L instances, rows lane-major) split into k contiguous
+    groups of its members, group j on ``devices[j]``: JAX's ``P("graph")``
+    over the bank's member axis.  ``views[j]`` renders group j (a bank's
+    :meth:`shard`; for a chain, its silence limits and context)."""
+
+    def __init__(self, size: int, lanes: int, devices: list, home):
+        self.devices = devices
+        self.home = home
+        self.lanes = lanes
+        per = size // len(devices)
+        self.members = [list(range(j * per, (j + 1) * per))
+                        for j in range(len(devices))]
+        # each shard's rows: host indices, and a slice (one instance) or an
+        # index tensor on the home device
+        self.rows = [member_rows(m, size, lanes) for m in self.members]
+        self._sel = [slice(int(r[0]), int(r[-1]) + 1) if lanes == 1 else
+                     torch.as_tensor(r, device=home) for r in self.rows]
+        self.views: list = []
+
+    @staticmethod
+    def pick(x, j: int):
+        """Shard j's entry of a per-shard list; anything else is shared."""
+        return x[j] if isinstance(x, list) else x
+
+    def take(self, x, j: int, dim: int = 0):
+        """Shard j's rows of ``x`` (along ``dim``): a tensor on the home
+        device comes to shard j's device, a host array stays on the host."""
+        if isinstance(x, np.ndarray):
+            return np.take(x, self.rows[j], axis=dim)
+        sel = self._sel[j]
+        if isinstance(sel, slice):
+            x = x.narrow(dim, sel.start, sel.stop - sel.start)
+        else:
+            x = x.index_select(dim, sel)
+        return x.to(self.devices[j])
+
+    def gather(self, outs: list, dim: int = 0):
+        """The shards' rows back on the home device, in row order."""
+        outs = [o.to(self.home) for o in outs]
+        if self.lanes == 1:
+            return torch.cat(outs, dim=dim)
+        parts = [o.unflatten(dim, (self.lanes, -1)) for o in outs]
+        return torch.cat(parts, dim=dim + 1).flatten(dim, dim + 1)
+
+    def run(self, states: list, fn):
+        """``fn(j, views[j], states[j]) -> (state, out)`` on every shard:
+        (the shards' states, their outputs gathered)."""
+        sts, outs = [], []
+        for j, view in enumerate(self.views):
+            st, out = fn(j, view, states[j])
+            sts.append(st)
+            outs.append(out)
+        return sts, self.gather(outs)
+
+
+def _splits(program: RenderProgram, devices: list) -> dict:
+    """The banks of ``program`` a mesh of ``devices`` splits: every file
+    bank, pool and sibling chain whose member count the mesh divides (the
+    JAX package's rule, by source paths and chain lanes); the rest stays
+    whole on the first device."""
+    k = len(devices)
+    out = {"file_batches": {}, "pools": {}, "chains": {}}
+    if k == 1:
+        return out
+    sizes = {"file_batches": [len(b.paths) for b in program.file_batches],
+             "pools": [len(p.paths) for p in program.pools],
+             "chains": [len(c["mixers"]) for c in program.chains]}
+    for kind, counts in sizes.items():
+        for i, g in enumerate(counts):
+            if g % k == 0:
+                out[kind][i] = BankSplit(g, program.lanes, devices, devices[0])
+    return out
+
+
+def _place(state, splits: dict, move):
+    """A program's state with each split bank's entry a list of its
+    shards' (``move(leaf, split, j, dim)`` places a leaf's rows) and every
+    other leaf ``move(leaf, None, None, 0)``, which places it on the first
+    device."""
+    def whole(t):
+        return tree_map(lambda a: move(a, None, None, 0), t)
+
+    def parts(t, sp, dim=0):
+        return [tree_map(lambda a: move(a, sp, j, dim), t)
+                for j in range(len(sp.devices))]
+
+    out = {"smoothers": whole(state["smoothers"])}
+    for kind in ("file_batches", "pools", "chains"):
+        out[kind] = [parts(st, splits[kind][i]) if i in splits[kind]
+                     else whole(st) for i, st in enumerate(state[kind])]
+    if "bypass" in state:  # [stages, L*G]: the rows are the second axis
+        out["bypass"] = [parts(a, splits["chains"][i], 1)
+                         if i in splits["chains"] else whole(a)
+                         for i, a in enumerate(state["bypass"])]
+    return out
+
+
+def _pool_rows(flat, layout, sp: BankSplit, j: int):
+    """Shard j's rows of a pool's flat lowered array (LeafBatch.stack) and
+    their layout: each array's rows are one instance's members ([G, ...],
+    shared inputs of a lane-batched program) or every instance's ([L*G,
+    ...])."""
+    size = sum(len(m) for m in sp.members)
+    parts, out, off = [], [], 0
+    for k, shape, is_float in layout:
+        count = int(np.prod(shape))
+        rows = (sp.members[j] if shape[0] == size and sp.lanes > 1
+                else sp.rows[j])
+        if flat is not None:
+            a = flat[off:off + count].reshape(shape)
+            parts.append(np.ascontiguousarray(a[rows]).reshape(-1))
+        out.append((k, (len(rows),) + tuple(shape[1:]), is_float))
+        off += count
+    return (np.concatenate(parts) if parts else None), tuple(out)
+
+
+def graph_state_shardings(program: RenderProgram, mesh,
                           axis: str = "graph",
                           lane_axis: Optional[str] = None):
     """Where each leaf of ``program``'s state lives when its banks split
-    over ``mesh``: a tree shaped as the state with a device per leaf.  On
-    a mesh of one device every leaf lives on it; splitting one graph's
-    banks over several devices is not implemented."""
+    over ``mesh``: a tree shaped as the state, each leaf a device, in
+    which a split bank's entry (a file bank, pool or sibling chain whose
+    member count the mesh divides) is a list of its shards' trees, one per
+    mesh entry; everything else (smoothers, scalar node state, the master
+    chain) lives on ``mesh[0]``.  A mesh of one device: every leaf on it.
+
+    With ``lane_axis`` the mesh is 2D, a list of rows, each row a lane
+    shard whose entries split its graph (``BatchedRenderProgram(...,
+    mesh=mesh2d)``): one such tree per row.  ``axis`` and ``lane_axis``
+    name the axes as in the JAX package; a port mesh is a list (of rows)."""
+    if lane_axis is not None:
+        if not _is_2d(mesh):
+            raise ValueError("lane_axis needs a 2D mesh: a list of rows")
+        return [graph_state_shardings(program, row, axis) for row in mesh]
+    if _is_2d(mesh):
+        raise ValueError("a 2D mesh needs lane_axis")
     devices = _mesh_devices(mesh)
-    if len(devices) > 1:
-        raise NotImplementedError(
-            "splitting one graph's banks over several devices is not "
-            "implemented; render independent lanes with BatchedRenderProgram")
-    return tree_map(lambda _: devices[0], program.init_state())
+    return _place(program.init_state(), _splits(program, devices),
+                  lambda a, sp, j, dim:
+                  devices[0] if sp is None else sp.devices[j])
 
 
 class GraphShardedProgram:
     """One graph's banks split over a mesh (the JAX package's
-    model-parallel program, bit-identical to the unsharded one).  On a
-    mesh of one device it is the program itself; over several devices it
-    raises ``NotImplementedError``."""
+    model-parallel program): every file bank, pool and sibling effect chain
+    whose member count the mesh divides renders as k contiguous groups of
+    its members, group j on ``mesh[j]`` with its own launches there; the
+    rest (smoothers, scalar node state, mixers, metering, the master
+    chain, and any bank the mesh does not divide) runs on ``mesh[0]``, the
+    program's device.  Each block's inputs reach every shard's device
+    sliced to its rows; the shards' outputs return to ``mesh[0]`` in row
+    order before any sum over rows, so the audio is the unsharded
+    program's bit for bit.  Entries may repeat (two shards on one card)
+    or name the CPU (a placement check).  The program may be lane-batched
+    (``RenderProgram(lanes=L)``): each shard then holds its members of
+    every instance.  ``axis`` names the mesh axis, as in the JAX package;
+    a port mesh has only that one."""
 
     def __init__(self, program: RenderProgram, mesh: Sequence[Device],
                  axis: str = "graph"):
         devices = _mesh_devices(mesh)
-        graph_state_shardings(program, devices, axis)
-        if devices[0] != program.device:
+        if devices[0] != _device(program.device):
             raise ValueError(f"the program renders on {program.device}, the "
-                             f"mesh holds {devices[0]}")
+                             f"mesh starts with {devices[0]}")
         self.program = program
         self.mesh = devices
-        self.step = program.step
+        self.lanes = program.lanes
+        self._splits = _splits(program, devices)
+        banks = {"file_batches": program.file_batches, "pools": program.pools}
+        for kind, bank in banks.items():
+            for i, sp in self._splits[kind].items():
+                sp.views = [bank[i].shard(m, d)
+                            for m, d in zip(sp.members, sp.devices)]
+        for cid, sp in self._splits["chains"].items():
+            limits = program.chains[cid].get("limits")
+            sp.views = [{"ctx": program.ctx._replace(device=d),
+                         "limits": None if limits is None
+                         else sp.take(limits, j, dim=1)}
+                        for j, d in enumerate(sp.devices)]
+
+    def shard_state(self, state):
+        """An unsharded state of the program (``init_state``, or one carried
+        over with ``convert.state_from_jax``) placed on the mesh."""
+        return _place(state, self._splits,
+                      lambda a, sp, j, dim: a.to(self.mesh[0]) if sp is None
+                      else sp.take(a, j, dim))
+
+    def gather_state(self, state):
+        """The inverse of :meth:`shard_state`: one unsharded state on
+        ``mesh[0]``."""
+        out = dict(state)
+        for kind in ("file_batches", "pools", "chains"):
+            out[kind] = [tree_map(lambda *xs, sp=self._splits[kind][i]:
+                                  sp.gather(list(xs)), *st)
+                         if i in self._splits[kind] else st
+                         for i, st in enumerate(state[kind])]
+        if "bypass" in state:
+            out["bypass"] = [self._splits["chains"][i].gather(a, dim=1)
+                             if i in self._splits["chains"] else a
+                             for i, a in enumerate(state["bypass"])]
+        return out
 
     def init_state(self):
-        return self.program.init_state()
+        return self.shard_state(self.program.init_state())
 
     def block_inputs(self, block_index: int):
         return self.program.block_inputs(block_index)
+
+    def _device_arrays(self, arrays: dict, host: dict) -> dict:
+        """The block's host arrays on the devices that read them: a split
+        bank's (``b{i}.*``, ``q{i}``, ``q{i}.f0``) as each shard's rows,
+        copied to its device from the host; the rest on ``mesh[0]``.  A
+        split pool's host values become a list of each shard's: its
+        layout, and the whole pool's step bound and live segments."""
+        dev = {}
+        for name, a in arrays.items():
+            bank = name.split(".")[0]
+            kind = {"b": "file_batches", "q": "pools"}.get(bank[0])
+            sp = None if kind is None else self._splits[kind].get(int(bank[1:]))
+            if sp is None:
+                dev[name] = torch.as_tensor(a, device=self.mesh[0])
+            elif name != bank:  # one entry per row: b{i}.*, q{i}.f0
+                dev[name] = [torch.as_tensor(np.ascontiguousarray(
+                    a[sp.rows[j]]), device=d) for j, d in enumerate(sp.devices)]
+        for pi, sp in self._splits["pools"].items():
+            layout, smax, live = host[f"q{pi}"]
+            flat = arrays.get(f"q{pi}")
+            parts = [_pool_rows(flat, layout, sp, j)
+                     for j in range(len(sp.devices))]
+            if flat is not None:
+                dev[f"q{pi}"] = [torch.as_tensor(f, device=d) for (f, _), d
+                                 in zip(parts, sp.devices)]
+            host[f"q{pi}"] = [(lay, smax, live) for _, lay in parts]
+        return dev
+
+    def step(self, state, inputs):
+        """(state, inputs) -> (state, audio) as the program's ``step``, the
+        audio on ``mesh[0]``; ``state`` from :meth:`init_state` or
+        :meth:`shard_state`; ``inputs`` shared or per lane, as the
+        program takes them."""
+        arrays, host = self.program._host_arrays(inputs)
+        dev = self._device_arrays(arrays, host)
+        return self.program._step(state, inputs, host, dev, self._splits)
 
 
 class BatchedRenderProgram:
     """``lanes`` independent instances of ``program``'s graph per block,
     folded into each bank, split over ``mesh`` (default: the program's
-    device)."""
+    device): a list of devices, one lane shard each, or a 2D mesh, a list
+    of rows, each row a lane shard whose banks split over the row's
+    devices (the JAX package's lanes x graph layout)."""
 
     def __init__(self, program: RenderProgram, lanes: int,
-                 mesh: Optional[Sequence[Device]] = None,
+                 mesh: Optional[Sequence] = None,
                  mixdown: bool = False):
         if program.lanes != 1 or program._lane_axis:
             raise ValueError("BatchedRenderProgram wraps a one-instance "
                              "program")
-        devices = ([program.device] if mesh is None
-                   else _mesh_devices(mesh))
-        if lanes < 1 or lanes % len(devices):
+        # each lane shard's devices: one (a 1D mesh), or a 2D mesh's row,
+        # whose entries split the shard's banks (GraphShardedProgram)
+        rows = ([[_device(program.device)]] if mesh is None
+                else [_mesh_devices(r) for r in mesh] if _is_2d(mesh)
+                else [[d] for d in _mesh_devices(mesh)])
+        if lanes < 1 or lanes % len(rows):
             raise ValueError(f"{lanes} lanes do not split evenly over "
-                             f"{len(devices)} devices")
+                             f"{len(rows)} devices")
         self.program = program
         self.lanes = lanes
         self.mesh = mesh
         self.mixdown = mixdown
         self.shards = []
-        for dev in devices:
-            shard = RenderProgram(program.root, program.config, device=dev,
-                                  lanes=lanes // len(devices))
+        for row in rows:
+            shard = RenderProgram(program.root, program.config, device=row[0],
+                                  lanes=lanes // len(rows))
             shard._share_control_from(program)
-            self.shards.append(shard)
-        self.device = devices[0]
+            self.shards.append(shard if len(row) == 1
+                               else GraphShardedProgram(shard, row))
+        self.device = rows[0][0]
 
     def init_states(self) -> list:
         """One state per shard (a list), each holding its lanes."""

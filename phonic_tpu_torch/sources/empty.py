@@ -26,7 +26,7 @@ class EmptySource(Source):
     def init_state(self, ctx: BuildCtx):
         return {}
 
-    def render_lanes(self, state, params, inputs, live, frame0: int,
+    def render_lanes(self, state, params, inputs, live, frame0,
                      ctx: BuildCtx):
         return state, _silence(inputs, ctx)
 
@@ -43,6 +43,6 @@ class EmptyGenerator(Generator):
     def init_state(self, ctx: BuildCtx):
         return {}
 
-    def render_lanes(self, state, params, inputs, live, frame0: int,
+    def render_lanes(self, state, params, inputs, live, frame0,
                      ctx: BuildCtx):
         return state, _silence(inputs, ctx)

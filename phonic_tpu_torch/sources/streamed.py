@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..errors import ParameterError
-from ..graph.nodes import BuildCtx, Source
+from ..graph.nodes import BuildCtx, Source, global_frames
 from ..io.decoder import AudioFileBuffer
 from ..ops import resample as rs
 from ..ops.buffer import remap_channels
@@ -403,17 +403,17 @@ class StreamedFileSource(Source):
     def source_batch_statics(self, ctx):
         return {"_start_t0": np.int32(self.options.start_time)}
 
-    def render_lanes(self, state, params, inputs, live, frame0: int,
+    def render_lanes(self, state, params, inputs, live, frame0,
                      ctx: BuildCtx):
         """Render the G lanes of a bank: params each [G, n]; inputs the
         stacked windows ``_win`` [G, ch, W], ``_win_frac`` [G] and
         ``_win_live`` [G, W], the statics and ``_stop_at`` / ``_kill_at``
-        [G].  Returns (state, audio [G, ch, n])."""
+        [G]; ``frame0`` a host int or each lane's start frame [G].  Returns (state, audio [G, ch, n])."""
         n = ctx.block_frames
         win = inputs["_win"]
         dev = win.device
         f32 = torch.float32
-        gframes = frame0 + torch.arange(n, dtype=torch.int64, device=dev)
+        gframes = global_frames(frame0, n, dev)  # [n] or [G, n]
         start_t = inputs["_start_t0"].to(torch.int64)[:, None]
         stop_at = inputs["_stop_at"].to(torch.int64)[:, None]
         kill_at = inputs["_kill_at"].to(torch.int64)[:, None]
@@ -448,7 +448,7 @@ class StreamedFileSource(Source):
         return state, audio
 
     def _fade_gains(self, gframes, stop_at, start_t, ctx: BuildCtx):
-        gain = torch.ones(stop_at.shape[:1] + gframes.shape,
+        gain = torch.ones(stop_at.shape[:1] + gframes.shape[-1:],
                           dtype=torch.float32, device=gframes.device)
         if self.options.fade_in_secs > 0.0:
             k = (gframes - start_t + 1).to(torch.float32)

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..errors import ParameterError
-from ..graph.nodes import BuildCtx, Source
+from ..graph.nodes import BuildCtx, Source, global_frames
 from ..ops.buffer import remap_channels
 from ..ops.convert import panning_factors
 from ..params import DecibelScaling, FloatParameter, format_gain, format_pan
@@ -167,15 +167,16 @@ class SynthSource(Source):
         fade = int(self.options.fade_out_secs * ctx.sample_rate) + 1
         return self.options.start_time + self.options.duration + fade
 
-    def render_lanes(self, state, params, inputs, live, frame0: int,
+    def render_lanes(self, state, params, inputs, live, frame0,
                      ctx: BuildCtx):
         """Render the G lanes of a bank: params each [G, n]; inputs the
-        lanes' statics and ``_stop_at`` [G].  Returns (new state, audio
+        lanes' statics and ``_stop_at`` [G]; ``frame0`` a host int or each
+        lane's start frame [G].  Returns (new state, audio
         [G, ch, n])."""
         n = ctx.block_frames
         dev = inputs["_stop_at"].device
         opt = self.options
-        gframes = frame0 + torch.arange(n, dtype=torch.int64, device=dev)
+        gframes = global_frames(frame0, n, dev)  # [n] or [G, n]
         start_t = inputs["_start_t0"].to(torch.int64)[:, None]
         dur = inputs["_gate_dur"].to(torch.int64)[:, None]
         stop_at = inputs["_stop_at"].to(torch.int64)[:, None]

@@ -17,8 +17,11 @@ on the CPU at 1024-frame blocks and 3 lanes.
 * ``mixdown`` against the sum of the lanes (1e-4 of 3 x the single
   render); ``render_scan`` equals ``render`` bit for bit; a mesh of two
   CPU entries equals one device; auto-bypass and metering fold.
-* ``GraphShardedProgram`` on one device is the program, bit for bit, and
-  raises on two.
+* ``GraphShardedProgram`` on one device and split over two is the
+  program, bit for bit (tests/test_torch_graph_sharded.py holds the
+  split).
+* Lanes whose blocks start at different frames (lane k at block ``b +
+  k``) against the JAX package's lanes over the same inputs, to -90 dB.
 * Per-lane inputs (lanes that differ in automation, notes, stops and
   seeks; ``LANE_SCHEDULES``): each lane against the JAX package's lanes
   stepped by its ``BatchedRenderProgram`` over the stacked per-lane inputs
@@ -27,7 +30,8 @@ on the CPU at 1024-frame blocks and 3 lanes.
   own single program, to 1e-6, also across shared -> per-lane -> shared
   blocks; one per-lane block makes one lane's launches; lanes with
   different pool step bounds; the lanes asserted to differ; the
-  ``ValueError`` of lanes that do not fold.  The JAX lanes use notes in
+  ``ValueError`` of lanes that do not fold (a lane at another
+  ``frame0`` folds).  The JAX lanes use notes in
   one step bucket (its sampler step bound is a shape) and no per-note
   automation (its knot arrays' shapes follow the knot count), so that
   their inputs stack.
@@ -358,18 +362,22 @@ def test_bypass_and_metering_fold():
 
 
 def test_graph_sharded_program():
+    """On one device and split over two, the headline equals the program
+    bit for bit (tests/test_torch_graph_sharded.py covers the split)."""
     prog = _program(headline)
-    sharded = GraphShardedProgram(prog, ["cpu"])
-    st, outs = sharded.init_state(), []
-    for b in range(3):
-        st, y = sharded.step(st, sharded.block_inputs(b))
-        outs.append(y.numpy())
-    np.testing.assert_array_equal(np.concatenate(outs, axis=-1),
-                                  _program(headline).render(3 * BLOCK))
+    want = _program(headline).render(3 * BLOCK)
+    for mesh in (["cpu"], ["cpu", "cpu"]):
+        sharded = GraphShardedProgram(prog, mesh)
+        st, outs = sharded.init_state(), []
+        for b in range(3):
+            st, y = sharded.step(st, sharded.block_inputs(b))
+            outs.append(y.numpy())
+        np.testing.assert_array_equal(np.concatenate(outs, axis=-1), want)
     devices = graph_state_shardings(prog, ["cpu"])
     assert devices["file_batches"][0]["base"] == torch.device("cpu")
-    with pytest.raises(NotImplementedError):
-        GraphShardedProgram(prog, ["cpu", "cpu"])
+    split = graph_state_shardings(prog, ["cpu", "cpu"])
+    assert [d["base"] for d in split["file_batches"][0]] == \
+        [torch.device("cpu")] * 2
 
 
 def test_folded_program_refuses_adopt():
@@ -460,20 +468,30 @@ def _lane_programs(graph, pkg, rate, lanes):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_lanes(graph, rate, blocks, lanes=LANES):
+def _jax_batched(graph, rate, lanes):
+    """The JAX package's BatchedRenderProgram of a graph, kept so that its
+    step compiles once for the module: the JAX headline's compile takes
+    most of a minute."""
+    return JBatched(_program(graph, jp, rate), lanes=lanes)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_lanes(graph, rate, blocks, lanes=LANES, offsets=None):
     """The JAX package's lanes from its init state through ``blocks``
     blocks of per-lane inputs: its BatchedRenderProgram's step over the
     lane programs' inputs, packed as its step packs them and stacked
-    [lanes, ...].  Returns the init state, the state after each block and
-    the audio [lanes, ch, blocks * BLOCK].  Kept for the module's other
-    tests: the JAX headline's compile takes most of a minute."""
-    jb = JBatched(_program(graph, jp, rate), lanes=lanes)
+    [lanes, ...]; with ``offsets``, lane k's inputs are its program's block
+    ``b + offsets[k]`` (JAX traces ``frame0``).  Returns the init state,
+    the state after each block and the audio [lanes, ch, blocks * BLOCK].
+    Kept for the module's other tests."""
+    jb = _jax_batched(graph, rate, lanes)
     progs = _lane_programs(graph, jp, rate, lanes)
+    offsets = offsets or (0,) * lanes
     pack = jb._step_program.pack_inputs
     st = jb.init_states()
     states, outs = [jax.device_get(st)], []
     for b in range(blocks):
-        packed = [pack(p.block_inputs(b)) for p in progs]
+        packed = [pack(p.block_inputs(b + o)) for p, o in zip(progs, offsets)]
         st, y = jb.step(st, jax.tree.map(lambda *xs: np.stack(xs), *packed))
         states.append(jax.device_get(st))
         outs.append(np.asarray(y))
@@ -519,6 +537,28 @@ def test_divergent_lanes_match_jax(graph, rate, case):
         return
     assert got.shape == (lanes, 2, 3 * BLOCK)
     for lane in range(lanes):
+        _close_db(got[lane], want[lane], DB90)
+
+
+@pytest.mark.parametrize("graph,rate", [(headline, SR), (pools, 65536),
+                                        (granular, SR)],
+                         ids=["headline", "pools", "granular"])
+def test_lanes_at_different_frames_match_jax(graph, rate):
+    """Lanes whose blocks start at different frames (lane k fed its own
+    program's block ``b + k``) against the JAX package's lanes over the
+    same per-lane inputs, from the same state."""
+    offsets = tuple(range(LANES))
+    jstates, want = _jax_lanes(graph, rate, 3, LANES, offsets)
+    pb = BatchedRenderProgram(_program(graph, pt, rate), lanes=LANES)
+    progs = _lane_programs(graph, pt, rate, LANES)
+    states, outs = batched_state_from_jax(jstates[0], pb), []
+    for b in range(3):
+        states, y = pb.step(states, [p.block_inputs(b + o)
+                                     for p, o in zip(progs, offsets)])
+        outs.append(y.numpy())
+    got = np.concatenate(outs, axis=-1)
+    assert got.shape == (LANES, 2, 3 * BLOCK)
+    for lane in range(LANES):
         _close_db(got[lane], want[lane], DB90)
 
 
@@ -671,7 +711,7 @@ def test_divergent_leaf_banks_match_single_programs(tmp_path):
 
 
 def _structure_errors():
-    def other_frame0(ins):
+    def other_frame0(ins):  # folds: lanes may start at different frames
         ins[1] = dict(ins[1], frame0=ins[1]["frame0"] + BLOCK)
 
     def other_graph(ins):
@@ -679,17 +719,28 @@ def _structure_errors():
 
     def one_too_many(ins):
         ins.append(ins[0])
-    return {"frame0": (other_frame0, "frame"), "structure":
+    return {"frame0": (other_frame0, None), "structure":
             (other_graph, "parameter groups|rows|source paths"),
             "lane_count": (one_too_many, "lanes of inputs")}
 
 
 @pytest.mark.parametrize("case", sorted(_structure_errors()))
 def test_lanes_that_do_not_fold_raise(case):
+    """Lanes of another structure or count raise ``ValueError``; a lane
+    whose block starts at another frame folds (the ``frame0`` case): its
+    audio is the block rendered from that frame."""
     change, match = _structure_errors()[case]
     pb = BatchedRenderProgram(_program(headline), lanes=LANES)
     inputs = [p.block_inputs(0)
               for p in _lane_programs(headline, pt, SR, LANES)]
     change(inputs)
-    with pytest.raises(ValueError, match=match):
-        pb.step(pb.init_states(), inputs)
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            pb.step(pb.init_states(), inputs)
+        return
+    _, y = pb.step(pb.init_states(), inputs)
+    single = _program(headline)
+    LANE_SCHEDULES[headline](single, 1)
+    _, want = single.step(single.init_state(), inputs[1])
+    assert inputs[1]["frame0"] == BLOCK
+    np.testing.assert_array_equal(y[1].numpy(), want.numpy())
