@@ -186,7 +186,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from phonic_tpu_torch import kernels
+from phonic_tpu_torch import kernels, tracing
 from phonic_tpu_torch.effects.delay import DelayEffect
 from phonic_tpu_torch.generators.granular import source_table
 from phonic_tpu_torch.granular1k import granular_program
@@ -242,12 +242,9 @@ CYCLES_PER_OP = 4
 # all operations per sample (compares, selects and arithmetic)
 OPS_PER_SAMPLE = {"follower": 5, "gate": 15}
 
-# launch counters: kernel -> (module, attribute)
-COUNTERS = {"ramp_read": (rampread, "launches"),
-            "iir2": (scan, "iir2_launches"),
-            "iir1": (scan, "iir1_launches"),
-            "follower": (follower, "follower_launches"),
-            "gate": (follower, "gate_launches")}
+# launch counters: kernel -> its counter in phonic_tpu_torch.tracing
+COUNTERS = {k: f"kernel.{k}" for k in
+            ("ramp_read", "iir2", "iir1", "follower", "gate")}
 # the kernels whose machine code phase 1 summarises
 SASS_KERNELS = ("gate_kernel", "iir2_kernel", "iir1_kernel", "ramp_read_kernel")
 SOURCES = {"ramp_read": ("phonic_tpu_torch/csrc/rampread.cu",
@@ -737,12 +734,16 @@ def _first_use(body, k):
 
 
 def reset_counters():
-    for mod, attr in COUNTERS.values():
-        setattr(mod, attr, 0)
+    """Zero the launch counters and count from now on."""
+    tracing.reset()
+    tracing.enable()
 
 
 def read_counters():
-    launches = {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
+    """The launches since :func:`reset_counters`, which stops counting."""
+    counts = tracing.counters()
+    tracing.disable()
+    launches = {k: counts.get(name, 0) for k, name in COUNTERS.items()}
     log(f"    launches {launches}")
     return launches
 

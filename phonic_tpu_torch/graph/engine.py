@@ -67,6 +67,7 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import DEFAULT_CONFIG, DEFAULT_INERTIA, EngineConfig, resolve_device
 from ..errors import NotFoundError
 from ..events import ParamTimeline
@@ -688,18 +689,21 @@ class RenderProgram:
         """Host-side lowering of one block's events (numpy)."""
         n = self.ctx.block_frames
         start = block_index * n
-        params = {}
-        for key, pps in self._param_groups.items():
-            lowered = [self.timelines[pp].lower_block(start, n, self.ctx.max_events)
-                       for pp in pps]
-            params[key] = tuple(np.stack(x) for x in zip(*lowered))
-        extra = {}
-        for path, node in self.nodes.items():
-            node_extra = node.lower_block_inputs(start, n)
-            if node_extra:
-                extra[path] = node_extra
-        stops = {path: (self.stop_frames[path], self.kill_frames[path])
-                 for path in self.source_paths}
+        with tracing.span("engine.lower", block_index):
+            params = {}
+            with tracing.span("engine.lower.params"):
+                for key, pps in self._param_groups.items():
+                    lowered = [self.timelines[pp].lower_block(
+                        start, n, self.ctx.max_events) for pp in pps]
+                    params[key] = tuple(np.stack(x) for x in zip(*lowered))
+            extra = {}
+            with tracing.span("engine.lower.nodes"):
+                for path, node in self.nodes.items():
+                    node_extra = node.lower_block_inputs(start, n)
+                    if node_extra:
+                        extra[path] = node_extra
+            stops = {path: (self.stop_frames[path], self.kill_frames[path])
+                     for path in self.source_paths}
         return {"frame0": start, "params": params, "stops": stops,
                 "extra": extra}
 
@@ -782,6 +786,12 @@ class RenderProgram:
                                  f"program lacks: {sorted(unknown)}")
         return lanes
 
+    def _block_index(self, inputs) -> int:
+        """The index of the block that ``inputs`` (shared, or per lane: the
+        first lane's) serve, which its spans carry."""
+        first = inputs if isinstance(inputs, dict) else next(iter(inputs))
+        return int(first["frame0"]) // self.ctx.block_frames
+
     def _host_arrays(self, inputs):
         """The host arrays of a block's inputs that the step reads on the
         device, by name, and the host values derived from them that the
@@ -859,27 +869,28 @@ class RenderProgram:
         a retuned pool) makes a new layout and bumps ``_pack_version``.
         The buffer is fresh per block: PyTorch's pinned-memory cache hands
         a buffer out again only once the copy that read it has completed."""
-        arrays, host = self._host_arrays(inputs)
-        sig = tuple((k, a.shape, a.dtype.str) for k, a in arrays.items())
-        if self._pack_spec is None or self._pack_spec[0] != sig:
-            offsets, off = [], 0
-            for _, a in arrays.items():
-                offsets.append(off)
-                off += -(-a.nbytes // 8) * 8
-            self._pack_spec = (sig, tuple(offsets), max(off, 8))
-            self._pack_version += 1
-        _, offsets, total = self._pack_spec
-        pinned = self.device.type == "cuda"
-        buf = torch.empty(total, dtype=torch.uint8, pin_memory=pinned)
-        view = buf.numpy()
-        for off, a in zip(offsets, arrays.values()):
-            view[off:off + a.nbytes] = np.ascontiguousarray(a).view(
-                np.uint8).reshape(-1)
-        dbuf = buf.to(self.device, non_blocking=True) if pinned else buf
-        device = {}
-        for off, (k, a) in zip(offsets, arrays.items()):
-            t = dbuf[off:off + a.nbytes].view(_TORCH[a.dtype.str])
-            device[k] = t.view(a.shape)
+        with tracing.span("engine.upload", self._block_index(inputs)):
+            arrays, host = self._host_arrays(inputs)
+            sig = tuple((k, a.shape, a.dtype.str) for k, a in arrays.items())
+            if self._pack_spec is None or self._pack_spec[0] != sig:
+                offsets, off = [], 0
+                for _, a in arrays.items():
+                    offsets.append(off)
+                    off += -(-a.nbytes // 8) * 8
+                self._pack_spec = (sig, tuple(offsets), max(off, 8))
+                self._pack_version += 1
+            _, offsets, total = self._pack_spec
+            pinned = self.device.type == "cuda"
+            buf = torch.empty(total, dtype=torch.uint8, pin_memory=pinned)
+            view = buf.numpy()
+            for off, a in zip(offsets, arrays.values()):
+                view[off:off + a.nbytes] = np.ascontiguousarray(a).view(
+                    np.uint8).reshape(-1)
+            dbuf = buf.to(self.device, non_blocking=True) if pinned else buf
+            device = {}
+            for off, (k, a) in zip(offsets, arrays.items()):
+                t = dbuf[off:off + a.nbytes].view(_TORCH[a.dtype.str])
+                device[k] = t.view(a.shape)
         return PackedInputs(inputs, host, device)
 
     def packed_block_inputs(self, block_index: int) -> PackedInputs:
@@ -930,9 +941,10 @@ class RenderProgram:
         :class:`MixerLevels`, its levels ``[lanes, ch]`` likewise).  Each
         host array is copied to the device on its own; :meth:`step_packed`
         copies them in one go and gives the same numbers."""
-        arrays, host = self._host_arrays(inputs)
-        dev = {k: torch.as_tensor(a, device=self.device)
-               for k, a in arrays.items()}
+        with tracing.span("engine.upload", self._block_index(inputs)):
+            arrays, host = self._host_arrays(inputs)
+            dev = {k: torch.as_tensor(a, device=self.device)
+                   for k, a in arrays.items()}
         return self._step(state, inputs, host, dev)
 
     def step_packed(self, state, packed: PackedInputs):
@@ -958,18 +970,20 @@ class RenderProgram:
         n = ctx.block_frames
         sts, ages = [], []
         for i, e0 in enumerate(effects):
-            pvals = stage_params(i)
-            st0 = states[i]
-            if age0 is not None:
-                silent = torch.amax(torch.abs(x), dim=(1, 2)) <= SILENCE
-                skip = silent & (age0[i] >= limits[i])
-                st, y = e0.process(st0, x, pvals, ctx)
-                x = torch.where(skip[:, None, None], x, y)
-                st = tree_map(lambda a, b: torch.where(
-                    skip.view((-1,) + (1,) * (a.dim() - 1)), a, b), st0, st)
-                ages.append(torch.where(silent, age0[i] + n, 0))
-            else:
-                st, x = e0.process(st0, x, pvals, ctx)
+            with tracing.span(e0.SPAN):
+                pvals = stage_params(i)
+                st0 = states[i]
+                if age0 is not None:
+                    silent = torch.amax(torch.abs(x), dim=(1, 2)) <= SILENCE
+                    skip = silent & (age0[i] >= limits[i])
+                    st, y = e0.process(st0, x, pvals, ctx)
+                    x = torch.where(skip[:, None, None], x, y)
+                    st = tree_map(lambda a, b: torch.where(
+                        skip.view((-1,) + (1,) * (a.dim() - 1)), a, b),
+                        st0, st)
+                    ages.append(torch.where(silent, age0[i] + n, 0))
+                else:
+                    st, x = e0.process(st0, x, pvals, ctx)
             sts.append(st)
         if age0 is None:
             return sts, None, x
@@ -988,6 +1002,11 @@ class RenderProgram:
         program's device in row order (``split.run`` / ``split.gather``)
         before anything sums over rows, so the result is the unsplit
         program's bit for bit."""
+        with tracing.span("engine.step", self._block_index(inputs)):
+            return self._walk(state, inputs, host, dev, split)
+
+    def _walk(self, state, inputs, host, dev, split):
+        """:meth:`_step`'s body: the graph walked over one block."""
         ctx = self.ctx
         n = ctx.block_frames
         lanes = self.lanes
@@ -1000,8 +1019,9 @@ class RenderProgram:
         # each lane's nodes' own inputs, lane-major
         extras = ([inputs.get("extra", {})] * lanes if per is None
                   else [d.get("extra", {}) for d in per])
-        new_smoothers, values = self._smooth_all_params(
-            state["smoothers"], host, dev)
+        with tracing.span("engine.smooth"):
+            new_smoothers, values = self._smooth_all_params(
+                state["smoothers"], host, dev)
 
         def per_lane(key):  # the group's values differ between lanes
             return values[key].shape[0] != len(self._param_groups[key])
@@ -1023,16 +1043,18 @@ class RenderProgram:
             f0 = dev.get(f"b{bi}.f0", frame0)
             differ = per_lane(sel["SPED"][0])
             sp = split.get("file_batches", {}).get(bi)
-            if sp is None:
-                nb_state, out = batch.render(
-                    state["file_batches"][bi], f0, *args,
-                    *(dev[k] for k in names), differ)
-            else:
-                nb_state, out = sp.run(
-                    state["file_batches"][bi],
-                    lambda j, view, st: view.render(
-                        st, sp.pick(f0, j), *(sp.take(a, j) for a in args),
-                        *(dev[k][j] for k in names), differ))
+            with tracing.span("source.file_bank"):
+                if sp is None:
+                    nb_state, out = batch.render(
+                        state["file_batches"][bi], f0, *args,
+                        *(dev[k] for k in names), differ)
+                else:
+                    nb_state, out = sp.run(
+                        state["file_batches"][bi],
+                        lambda j, view, st: view.render(
+                            st, sp.pick(f0, j),
+                            *(sp.take(a, j) for a in args),
+                            *(dev[k][j] for k in names), differ))
             new_batches.append(nb_state)
             out = out.view((lanes, len(batch.paths)) + out.shape[1:])
             for i, p in enumerate(batch.paths):
@@ -1042,20 +1064,23 @@ class RenderProgram:
             params = {pid: rows(sel) for pid, sel in self._pool_rows[pi].items()}
             f0 = dev.get(f"q{pi}.f0", frame0)
             sp = split.get("pools", {}).get(pi)
-            if sp is None:
-                layout, smax, live = host[f"q{pi}"]
-                pool_state, out = pool.render(
-                    state["pools"][pi], params,
-                    pool.voices(dev.get(f"q{pi}"), layout), smax, live, f0)
-            else:
-                def shard(j, view, st, pi=pi, params=params, f0=f0, sp=sp):
-                    layout, smax, live = host[f"q{pi}"][j]
-                    flat = dev.get(f"q{pi}")
-                    return view.render(
-                        st, {k: sp.take(v, j) for k, v in params.items()},
-                        view.voices(None if flat is None else flat[j],
-                                    layout), smax, live, sp.pick(f0, j))
-                pool_state, out = sp.run(state["pools"][pi], shard)
+            with tracing.span("source.pool"):
+                if sp is None:
+                    layout, smax, live = host[f"q{pi}"]
+                    pool_state, out = pool.render(
+                        state["pools"][pi], params,
+                        pool.voices(dev.get(f"q{pi}"), layout), smax, live,
+                        f0)
+                else:
+                    def shard(j, view, st, pi=pi, params=params, f0=f0,
+                              sp=sp):
+                        layout, smax, live = host[f"q{pi}"][j]
+                        flat = dev.get(f"q{pi}")
+                        return view.render(
+                            st, {k: sp.take(v, j) for k, v in params.items()},
+                            view.voices(None if flat is None else flat[j],
+                                        layout), smax, live, sp.pick(f0, j))
+                    pool_state, out = sp.run(state["pools"][pi], shard)
             new_pools.append(pool_state)
             out = out.view((lanes, len(pool.paths)) + out.shape[1:])
             for i, p in enumerate(pool.paths):
@@ -1147,9 +1172,11 @@ class RenderProgram:
             return new_state, audio
         # per-mixer metering (reference: MeteredSource on every mixer,
         # src/player.rs:444-459): every mixer's levels in one reduction
-        sig = torch.stack([y for _, y in metered])
-        stats = torch.stack([torch.amax(torch.abs(sig), dim=-1),
-                             torch.sqrt(torch.mean(torch.square(sig), dim=-1))])
+        with tracing.span("engine.meter"):
+            sig = torch.stack([y for _, y in metered])
+            stats = torch.stack([
+                torch.amax(torch.abs(sig), dim=-1),
+                torch.sqrt(torch.mean(torch.square(sig), dim=-1))])
         return new_state, (audio, MixerLevels([p for p, _ in metered], stats))
 
     # ------------------------------------------------------------------

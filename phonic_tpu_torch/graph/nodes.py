@@ -91,6 +91,13 @@ class Effect(Node):
     ``tail_frames`` is the ring-out length an offline render appends
     (reference: src/effect.rs:190-215)."""
 
+    # the name of the span each of its chain stages records (tracing.py)
+    SPAN = "effect.Effect"
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        cls.SPAN = f"effect.{cls.__name__}"
+
     def batch_key(self, ctx: BuildCtx):
         """Hashable key for cross-mixer effect batching, or None if this
         effect cannot run batched with others.  Two effects with equal keys

@@ -24,11 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import kernels
-
-# kernel launch counts (one per wrapper call that launched its kernel)
-follower_launches = 0
-gate_launches = 0
+from .. import kernels, tracing
 
 
 def follower_plain(in_db, attack_a, release_a, env0):
@@ -87,7 +83,6 @@ def follower(in_db, attack_a, release_a, env0):
     """Kernel 4 (``csrc/follower.cu``): the asymmetric follower over
     contiguous float32 CUDA streams [G, n] from env0 [G].
     Returns (env_end [G], envelope [G, n])."""
-    global follower_launches
     g, n = _check_streams((in_db, attack_a, release_a),
                           ("in_db", "attack_a", "release_a"), "follower")
     kernels.require(env0, "follower env0", ndim=1, device=in_db.device)
@@ -100,7 +95,7 @@ def follower(in_db, attack_a, release_a, env0):
         release_a.data_ptr(), env0.data_ptr(), env.data_ptr(),
         env_end.data_ptr(), g, n, kernels.stream_handle(in_db))
     kernels.check(err, "follower")
-    follower_launches += 1
+    tracing.count("kernel.follower")
     return env_end, env
 
 
@@ -109,7 +104,6 @@ def gate(in_db, attack_a, release_a, threshold, range_db, hold_samples,
     """Kernel 5 (``csrc/follower.cu``): the gate machine over six contiguous
     float32 CUDA streams [G, n] from state0 [G, 3] = (env, hold, gain_db).
     Returns (state [G, 3], gains_db [G, n])."""
-    global gate_launches
     streams = (in_db, attack_a, release_a, threshold, range_db, hold_samples)
     g, n = _check_streams(streams, ("in_db", "attack_a", "release_a",
                                     "threshold", "range_db", "hold_samples"),
@@ -125,7 +119,7 @@ def gate(in_db, attack_a, release_a, threshold, range_db, hold_samples,
         state0.data_ptr(), gains.data_ptr(), state.data_ptr(), g, n,
         kernels.stream_handle(in_db))
     kernels.check(err, "gate")
-    gate_launches += 1
+    tracing.count("kernel.gate")
     return state, gains
 
 

@@ -19,11 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from .. import kernels
+from .. import kernels, tracing
 from .resample import hermite_read
-
-# kernel launch count (one per wrapper call that launched its kernel)
-launches = 0
 
 
 def ramp_read_plain(buffers: torch.Tensor, smap: torch.Tensor,
@@ -44,7 +41,6 @@ def ramp_read(buffers: torch.Tensor, smap: torch.Tensor,
     positions: [B, N] float32 fractional frame positions (NaN reads
     silence on the CUDA path).
     Returns [B, ch, N] float32."""
-    global launches
     if not positions.is_cuda:
         return ramp_read_plain(buffers, smap, positions)
     dev = positions.device
@@ -68,5 +64,5 @@ def ramp_read(buffers: torch.Tensor, smap: torch.Tensor,
         dev.index, buffers.data_ptr(), smap.data_ptr(), positions.data_ptr(),
         out.data_ptr(), s, ch, frames, b, n, kernels.stream_handle(positions))
     kernels.check(err, "ramp_read")
-    launches += 1
+    tracing.count("kernel.ramp_read")
     return out

@@ -19,12 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from .. import kernels
+from .. import kernels, tracing
 from . import consts
-
-# kernel launch counts (one per wrapper call that launched its kernel)
-iir1_launches = 0
-iir2_launches = 0
 
 # The look-back scratch per (kernel, device, stream): [int32 tensor, last
 # epoch].  Zeroed once when allocated or grown; each call then tags its
@@ -129,7 +125,6 @@ def iir1(a: torch.Tensor, b: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
     """Kernel 3 (``csrc/scan.cu``): ``y[n] = a[n] y[n-1] + b[n]`` over
     contiguous float32 CUDA streams ``a``, ``b`` [R, T] from ``y0`` [R], in
     one launch."""
-    global iir1_launches
     for x, name in ((a, "a"), (b, "b")):
         kernels.require(x, f"iir1 {name}", ndim=2, device=b.device)
     kernels.require(y0, "iir1 y0", ndim=1, device=b.device)
@@ -150,7 +145,7 @@ def iir1(a: torch.Tensor, b: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
                           y0.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                           scratch.numel(), r, t, epoch, stream)
     kernels.check(err, "iir1")
-    iir1_launches += 1
+    tracing.count("kernel.iir1")
     return out
 
 
@@ -172,7 +167,6 @@ def iir2(a11, a12, a21, a22, b1, b2, s0_1, s0_2):
     """Kernel 2 (``csrc/scan.cu``): ``s[n] = A[n] s[n-1] + b[n]`` over six
     contiguous float32 CUDA streams [R, T] from ``(s0_1, s0_2)`` [R], in one
     launch.  Returns (s1, s2), each [R, T]."""
-    global iir2_launches
     streams = (a11, a12, a21, a22, b1, b2)
     for x, name in zip(streams, ("a11", "a12", "a21", "a22", "b1", "b2")):
         kernels.require(x, f"iir2 {name}", ndim=2, device=b1.device)
@@ -199,7 +193,7 @@ def iir2(a11, a12, a21, a22, b1, b2, s0_1, s0_2):
                           out2.data_ptr(), scratch.data_ptr(), scratch.numel(),
                           r, t, epoch, stream)
     kernels.check(err, "iir2")
-    iir2_launches += 1
+    tracing.count("kernel.iir2")
     return out1, out2
 
 

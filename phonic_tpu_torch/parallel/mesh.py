@@ -61,6 +61,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import resolve_device
 from ..graph.batching import member_rows
 from ..graph.engine import RenderProgram, tree_map
@@ -346,8 +347,10 @@ class GraphShardedProgram:
         audio on ``mesh[0]``; ``state`` from :meth:`init_state` or
         :meth:`shard_state`; ``inputs`` shared or per lane, as the
         program takes them."""
-        arrays, host = self.program._host_arrays(inputs)
-        dev = self._device_arrays(arrays, host)
+        with tracing.span("engine.upload",
+                          self.program._block_index(inputs)):
+            arrays, host = self.program._host_arrays(inputs)
+            dev = self._device_arrays(arrays, host)
         return self.program._step(state, inputs, host, dev, self._splits)
 
 

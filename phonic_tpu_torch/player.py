@@ -34,6 +34,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from . import tracing
 from .config import EngineConfig, resolve_device
 from .effects.gain import GainEffect
 from .errors import NotFoundError, ParameterError, PhonicError
@@ -954,48 +955,51 @@ class Player:
         each block takes fresh ones, and PyTorch's pinned-memory cache
         reuses a buffer only after the copy recorded on it has completed."""
         prog = self._ensure_program()
-        t0 = time.perf_counter()
         block_index = self._position // prog.ctx.block_frames
-        self._state, (audio, levels) = prog.step_packed(
-            self._state, prog.packed_block_inputs(block_index))
-        if prog.device.type == "cuda":
-            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                         for t in (audio, levels.stats))
-            for h, t in zip(host, (audio, levels.stats)):
-                h.copy_(t, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(prog.device))
-        else:
-            host, done = (audio, levels.stats), None
-        self._position += prog.ctx.block_frames
+        with tracing.timed("player.dispatch", block_index) as clock:
+            self._state, (audio, levels) = prog.step_packed(
+                self._state, prog.packed_block_inputs(block_index))
+            if prog.device.type == "cuda":
+                host = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True)
+                             for t in (audio, levels.stats))
+                for h, t in zip(host, (audio, levels.stats)):
+                    h.copy_(t, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(prog.device))
+            else:
+                host, done = (audio, levels.stats), None
+            self._position += prog.ctx.block_frames
         # carry the host time spent dispatching (not a wall-clock start):
         # in the pipelined pumps, other blocks' finish/write interleave
         # between dispatch and finish, and must not count as OUR load
-        return (prog, (host, list(levels), done), time.perf_counter() - t0,
-                self._position)
+        return prog, (host, list(levels), done), clock.ns, self._position
 
     def _finish_block_locked(self, pending) -> np.ndarray:
-        prog, (host, paths, done), dispatch_dt, _pos_after = pending
-        t0 = time.perf_counter()
-        if done is not None:
-            done.synchronize()  # this block's copies, nothing queued after
-        audio = host[0].numpy().copy()
-        stats = host[1].numpy().copy()
-        self._mixer_levels = {path: AudioLevel(stats[0, i], stats[1, i])
-                              for i, path in enumerate(paths)}
-        if not np.isfinite(audio).all():
-            audio = np.zeros_like(audio)
-            if not self._panicked:
-                self._panicked = True
-                if self.panic_handler is not None:
-                    self.panic_handler("non-finite samples in master output")
+        prog, (host, paths, done), dispatch_ns, pos_after = pending
+        n = prog.ctx.block_frames
+        with tracing.timed("player.finish", pos_after // n - 1) as clock:
+            with tracing.span("player.wait"):
+                if done is not None:  # this block's copies, nothing after
+                    done.synchronize()
+            audio = host[0].numpy().copy()
+            stats = host[1].numpy().copy()
+            self._mixer_levels = {path: AudioLevel(stats[0, i], stats[1, i])
+                                  for i, path in enumerate(paths)}
+            if not np.isfinite(audio).all():
+                audio = np.zeros_like(audio)
+                if not self._panicked:
+                    self._panicked = True
+                    if self.panic_handler is not None:
+                        self.panic_handler(
+                            "non-finite samples in master output")
         # active processing time for THIS block: host lowering/dispatch +
-        # materialization (device wait) — the analog of the reference's
-        # processing_time / rendered_audio_time (measured.rs:13-19)
-        dt = dispatch_dt + (time.perf_counter() - t0)
-
+        # materialization (device wait), the player.dispatch and
+        # player.finish spans' own clock reads — the analog of the
+        # reference's processing_time / rendered_audio_time
+        # (measured.rs:13-19)
         if self.config.measure_cpu_load:
-            load = dt / (prog.ctx.block_frames / prog.ctx.sample_rate)
+            load = (dispatch_ns + clock.ns) / 1e9 / (n / prog.ctx.sample_rate)
             self._cpu.peak = max(self._cpu.peak * 0.95, load)
             self._cpu.average = (1 - self._cpu_alpha) * self._cpu.average + self._cpu_alpha * load
         self._level = AudioLevel(

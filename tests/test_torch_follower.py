@@ -21,6 +21,7 @@ import torch
 from phonic_tpu.ops import envelope as jenv
 from phonic_tpu.ops import follower as jfo
 from phonic_tpu.ops import lfo as jlfo
+from phonic_tpu_torch import tracing
 from phonic_tpu_torch.ops import envelope, follower as fo
 from phonic_tpu_torch.ops import lfo
 
@@ -203,12 +204,18 @@ def test_routing_by_device():
     end2, env2 = fo.follower_plain(x, aa[:, :1].expand_as(x),
                                    torch.full_like(x, 0.002), env0)
     assert torch.equal(env, env2) and torch.equal(end, end2)
-    launches = fo.follower_launches, fo.gate_launches
-    with pytest.raises(ValueError, match="CUDA"):
-        fo.follower(x, aa, ra, env0)
-    with pytest.raises(ValueError, match="CUDA"):
-        fo.gate(x, aa, ra, x, x, x, torch.zeros(2, 3))
-    assert (fo.follower_launches, fo.gate_launches) == launches
+    tracing.reset()
+    tracing.enable()
+    try:
+        with pytest.raises(ValueError, match="CUDA"):
+            fo.follower(x, aa, ra, env0)
+        with pytest.raises(ValueError, match="CUDA"):
+            fo.gate(x, aa, ra, x, x, x, torch.zeros(2, 3))
+        counts = tracing.counters()
+        assert (counts.get("kernel.follower", 0),
+                counts.get("kernel.gate", 0)) == (0, 0)
+    finally:
+        tracing.disable()
 
 
 def test_empty_block_keeps_state():

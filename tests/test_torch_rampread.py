@@ -18,6 +18,7 @@ import torch
 
 from phonic_tpu.ops import rampread as jrr
 from phonic_tpu.ops.resample import hermite_read as jhermite_read
+from phonic_tpu_torch import tracing
 from phonic_tpu_torch.ops import rampread
 
 TOL = 1e-5
@@ -119,9 +120,13 @@ def test_cpu_tensors_take_the_plain_version():
     src = torch.as_tensor(rng.normal(size=(2, 1, 500)).astype(np.float32))
     smap = torch.tensor([1, 0], dtype=torch.int32)
     pos = torch.as_tensor(rng.uniform(0, 499, (2, 64)).astype(np.float32))
-    before = rampread.launches
-    out = rampread.ramp_read(src, smap, pos)
-    assert rampread.launches == before
+    tracing.reset()
+    tracing.enable()
+    try:
+        out = rampread.ramp_read(src, smap, pos)
+        assert tracing.counters().get("kernel.ramp_read", 0) == 0
+    finally:
+        tracing.disable()
     assert torch.equal(out, rampread.ramp_read_plain(src, smap, pos))
     from phonic_tpu_torch import kernels
     with pytest.raises(ValueError, match="CUDA"):

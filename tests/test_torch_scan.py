@@ -18,6 +18,7 @@ import torch
 
 from phonic_tpu.ops import pallas_scan as jpallas
 from phonic_tpu.ops import scan as jscan
+from phonic_tpu_torch import tracing
 from phonic_tpu_torch.ops import scan
 
 DB90 = 10.0 ** (-90.0 / 20.0)
@@ -145,10 +146,16 @@ def test_cpu_tensors_take_the_plain_version():
     """CPU tensors never reach a kernel: the launch counters stay put and
     the kernel wrappers refuse CPU tensors."""
     a, b, y0 = _mk1(2, 300, seed=3)
-    before = (scan.iir1_launches, scan.iir2_launches)
-    _port1(a, b, y0)
-    _port2(_mk2(2, 300, seed=4))
-    assert (scan.iir1_launches, scan.iir2_launches) == before
+    tracing.reset()
+    tracing.enable()
+    try:
+        _port1(a, b, y0)
+        _port2(_mk2(2, 300, seed=4))
+        counts = tracing.counters()
+        assert (counts.get("kernel.iir1", 0), counts.get("kernel.iir2", 0)) \
+            == (0, 0)
+    finally:
+        tracing.disable()
     with pytest.raises(ValueError, match="CUDA"):
         scan.iir1(torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(y0))
     with pytest.raises(ValueError, match="CUDA"):
