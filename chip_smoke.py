@@ -37,7 +37,10 @@ phase fails.  Phases:
    copy of the card's inputs.  The gate also runs edge cases: lengths at
    its tile and target-ring sizes and one off, holds of 0 and 1 samples, a
    gate that flips on every sample, and holds that run out just before, at
-   and after a tile boundary;
+   and after a tile boundary.  The smoother kernel must agree with its
+   plain version bit for bit (values and every field of the new state) in
+   every case of ``smooth_cases`` at n = 8192 and 131072, then at each
+   path's largest group (``SMOOTH_PATHS``), timed;
 3. the headline graph (16 file sources -> 4 sub-mixers with EQ5 + chorus ->
    reverb + gain, 131072-frame blocks at 48 kHz stereo) rendered on the card
    through ``RenderProgram.render``: the launch counters of its kernels
@@ -46,7 +49,7 @@ phase fails.  Phases:
    on the CPU to -90 dB of peak;
 4. the mastering chain (4 looping file sources -> gate -> compressor ->
    delay -> distortion -> limiter, 131072-frame blocks at 48 kHz stereo),
-   checked the same way; all five kernels' counters must grow.  It also
+   checked the same way; all six kernels' counters must grow.  It also
    times one roll of the delay's window at its shapes;
 5. the sampler (bench.py's config 2: 64 voices with AHDSR envelopes over
    one 48000-frame tone, 64 notes 480 frames apart, 131072-frame blocks at
@@ -158,7 +161,7 @@ phase fails.  Phases:
    headline graph's rate once more, after the profiler.
 
 The line before the last is a JSON object with each kernel's numbers from
-this run: at top level those of the mastering chain, which runs all five
+this run: at top level those of the mastering chain, which runs all six
 kernels, under ``by_path`` those of each path (a path's second shape as
 ``path/what``, sharing the path's launches) and under ``off_path`` those
 of the shapes timed off the paths.  The last line is
@@ -194,7 +197,9 @@ from phonic_tpu_torch.headline import mixer_graph_program, tone
 from phonic_tpu_torch.io import wav as wav_io
 from phonic_tpu_torch.io.decoder import AudioFileBuffer
 from phonic_tpu_torch.mastering import mastering_program
-from phonic_tpu_torch.ops import chrono, follower, rampread, resample, scan
+from phonic_tpu_torch.ops import (
+    chrono, follower, rampread, resample, scan, smoothing,
+)
 from phonic_tpu_torch.play_file import (
     BLOCK_FRAMES as PLAY_BLOCK, file_program, play_file_program, render_file,
 )
@@ -244,7 +249,7 @@ OPS_PER_SAMPLE = {"follower": 5, "gate": 15}
 
 # launch counters: kernel -> its counter in phonic_tpu_torch.tracing
 COUNTERS = {k: f"kernel.{k}" for k in
-            ("ramp_read", "iir2", "iir1", "follower", "gate")}
+            ("ramp_read", "iir2", "iir1", "follower", "gate", "smooth")}
 # the kernels whose machine code phase 1 summarises
 SASS_KERNELS = ("gate_kernel", "iir2_kernel", "iir1_kernel", "ramp_read_kernel")
 SOURCES = {"ramp_read": ("phonic_tpu_torch/csrc/rampread.cu",
@@ -256,7 +261,9 @@ SOURCES = {"ramp_read": ("phonic_tpu_torch/csrc/rampread.cu",
            "follower": ("phonic_tpu_torch/csrc/follower.cu",
                         "phonic_tpu/ops/follower.py:54"),
            "gate": ("phonic_tpu_torch/csrc/follower.cu",
-                    "phonic_tpu/ops/follower.py:140")}
+                    "phonic_tpu/ops/follower.py:140"),
+           # the JAX package's smoothers are plain jnp: no TPU kernel
+           "smooth": ("phonic_tpu_torch/csrc/smooth.cu", None)}
 
 
 def log(*args):
@@ -516,6 +523,7 @@ def check_kernels(dev):
         record("iir1", path, res, nbytes(a, b, y0) + 4 * r * t, 2 * r * t,
                fn, f"R={r} T={t}", timed=r == 40)
     check_dynamics(dev, rng, record)
+    check_smoothers(dev, rng, record)
     return results, off_path, calls
 
 
@@ -603,6 +611,155 @@ def check_dynamics(dev, rng, record):
         want = follower.gate_plain(*streams, *st0.unbind(-1))
         exact(f"gate B={b} n={n} {kind}", got, plain_outputs("gate", want))
         log(f"  gate B={b} n={n} {kind}: bit for bit")
+
+
+# the smoother groups as the engine keys them, (kind, arg): the default
+# inertia and a fast one, the default linear step, the default spring and
+# one that settles inside a block, the stepped targets with glides
+SMOOTH_KINDS = (("exponential", 1.0 / 256.0), ("exponential", 0.05),
+                ("linear", 0.01), ("spring", 4410.0), ("spring", 300.0),
+                ("step", 0.0))
+SMOOTH_K = 16  # event slots per block (EngineConfig.max_events_per_block)
+SMOOTH_LANES = 3
+# the largest group of each render path: (rows, n, kind, arg, path)
+SMOOTH_PATHS = ((106, BLOCK, "exponential", 1.0 / 256.0, "headline"),
+                (8 * 106, BLOCK, "exponential", 1.0 / 256.0,
+                 "batched_headline"),
+                (19, BLOCK, "exponential", 1.0 / 256.0, "mastering"),
+                (8 * 19, BLOCK, "exponential", 1.0 / 256.0, "mastering_lanes"),
+                (25, BLOCK, "step", 0.0, "mastering/step"),
+                (106, PLAYER_BLOCK, "exponential", 1.0 / 256.0, "player"))
+# float32 operations per sample of each kind's closed form (segment search
+# included, a transcendental counted as one)
+SMOOTH_OPS = {"exponential": 14, "linear": 10, "spring": 30, "step": 8}
+
+
+def smooth_events(rng, rows, n, k=SMOOTH_K):
+    """One block's [rows, k] event times (int64, unused slots at n),
+    values and glide flags: row 0 none, row 1 one event at sample 0, row 2
+    one at n - 1, row 3 all k slots valid (two at the same time), row 4 two
+    events and then masked slots past the block (n + 3), the rest 0-5
+    events at random."""
+    times = np.full((rows, k), n, np.int64)
+    for r in range(rows):
+        c = (0, 1, 1, k, 2)[r] if r < 5 else int(rng.integers(0, 6))
+        times[r, :c] = np.sort(rng.integers(0, n, c))
+    times[1, 0] = 0
+    times[2, 0] = n - 1
+    times[3, 1] = times[3, 0]
+    times[4, 2:] = n + 3
+    values = rng.uniform(-2.0, 3.0, (rows, k)).astype(np.float32)
+    ramps = (rng.uniform(size=(rows, k)) < 0.5).astype(np.float32)
+    return times, values, ramps
+
+
+def smooth_init(kind, arg, values):
+    """A group's initial state, as ``RenderProgram.init_state`` makes it."""
+    if kind == "exponential":
+        return smoothing.exp_smoother_init(values)
+    if kind == "linear":
+        return smoothing.lin_smoother_init(values, arg, SR)
+    if kind == "spring":
+        return smoothing.spring_smoother_init(values)
+    return values
+
+
+def smooth_cases(dev, n, rng, rows=12):
+    """Inputs of kernel 6 and its plain version on ``dev``, for each kind
+    of :data:`SMOOTH_KINDS`: two blocks from the initial state (the first
+    with int32 times, the second from the plain version's state after the
+    first: exponential ramps past their freeze point, linear counts that
+    run out inside a segment, springs in flight or settling), then the
+    lanes' two widening cases: per-lane events over that shared state,
+    and shared events over the per-lane state that block left.  Yields
+    (label, kind, arg, state, events, ramps)."""
+    for kind, arg in SMOOTH_KINDS:
+        state = smooth_init(kind, arg, torch.as_tensor(
+            rng.uniform(-1.0, 2.0, rows).astype(np.float32), device=dev))
+        for label, event_rows in (("block 0 int32", rows), ("block 1", rows),
+                                  (f"per-lane events L={SMOOTH_LANES}",
+                                   SMOOTH_LANES * rows),
+                                  (f"shared events L={SMOOTH_LANES}", rows)):
+            t, v, r = smooth_events(rng, event_rows, n)
+            ev = smoothing.segment_events(t, v, n, dev)
+            if "int32" in label:
+                ev = ev._replace(times=ev.times.to(torch.int32))
+            ramps = torch.as_tensor(r, device=dev)
+            yield (f"smooth {kind} {arg:g} n={n} {label}", kind, arg, state,
+                   ev, ramps)
+            state, _ = smoothing.smooth_group_plain(kind, arg, SR, state, ev,
+                                                    n, ramps)
+            # the plain version's targets are column views; the kernel's
+            # state, as the engine carries it, is contiguous
+            state = (state.contiguous() if kind == "step" else
+                     type(state)(*(a.contiguous() for a in state)))
+
+
+def smooth_outputs(res):
+    """(new state, values) -> the state's fields and the values, flat."""
+    state, values = res
+    fields = (state,) if isinstance(state, torch.Tensor) else tuple(state)
+    return fields + (values,)
+
+
+def ulps(got, want):
+    """The largest distance in float32 units in the last place between two
+    tensors of the same shape (0: equal bit for bit)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    if got.numel() == 0:
+        return 0
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def smooth_differences(label, got, want):
+    """Each output's largest difference in ulps, kernel against plain;
+    raises on a shape that differs."""
+    out = []
+    for g, w in zip(smooth_outputs(got), smooth_outputs(want)):
+        if g.shape != w.shape:
+            raise RuntimeError(f"{label}: shape {tuple(g.shape)}, plain "
+                               f"{tuple(w.shape)}")
+        out.append(ulps(g, w))
+    return out
+
+
+def check_smoothers(dev, rng, record):
+    """Kernel 6 against its plain version on the card: every case of
+    :func:`smooth_cases` at n = 8192 and 131072 must agree bit for bit,
+    values and every field of the new state; then each path's largest
+    group (:data:`SMOOTH_PATHS`), compared with bound 0 and timed."""
+    bad = []
+    for n in (PLAYER_BLOCK, BLOCK):
+        for label, kind, arg, state, ev, ramps in smooth_cases(dev, n, rng):
+            got = smoothing.smooth_kernel(kind, arg, SR, state, ev, n, ramps)
+            want = smoothing.smooth_group_plain(kind, arg, SR, state, ev, n,
+                                                ramps)
+            diff = smooth_differences(label, got, want)
+            log(f"  {label}: ulps {diff} (state fields, values)")
+            if any(diff):
+                bad.append(label)
+    if bad:
+        raise RuntimeError(f"smooth: kernel differs from its plain version "
+                           f"in {bad}")
+    for rows, n, kind, arg, path in SMOOTH_PATHS:
+        t, v, r = smooth_events(rng, rows, n)
+        ev = smoothing.segment_events(t, v, n, dev)
+        ramps = torch.as_tensor(r, device=dev)
+        state = smooth_init(kind, arg, torch.as_tensor(
+            rng.uniform(-1.0, 2.0, rows).astype(np.float32), device=dev))
+        fn = functools.partial(smoothing.smooth_kernel, kind, arg, SR, state,
+                               ev, n, ramps)
+        res = compare(f"smooth {kind} P={rows} n={n}",
+                      lambda: smooth_outputs(fn()),
+                      lambda: smooth_outputs(smoothing.smooth_group_plain(
+                          kind, arg, SR, state, ev, n, ramps)), 0.0,
+                      relative=False)
+        # the values written once, the events and the state read once
+        record("smooth", path, res, 4 * rows * n + nbytes(ev.times, ev.values)
+               + 8 * rows, SMOOTH_OPS[kind] * rows * n, fn,
+               f"{kind} P={rows} n={n}")
 
 
 def plain_outputs(name, want):
@@ -1651,7 +1808,7 @@ def kernel_times(calls, reps=20):
 
 def kernel_report(measured, off_path, paths):
     """The kernels JSON object.  Top-level numbers are the mastering
-    chain's, the path that runs all five kernels: its launches and each
+    chain's, the path that runs all six kernels: its launches and each
     kernel's numbers at its shape; ``by_path`` holds each path's and
     ``off_path`` those of the shapes timed off the paths."""
     report = {"kernels": []}
@@ -1677,7 +1834,8 @@ def kernel_report(measured, off_path, paths):
             **{k: by_path["mastering"][k] for k in (
                 "launches", "max_abs_err", "ms", "kernel_ms", "plain_ms",
                 "bound_ms", "bound_by")},
-            # no single PyTorch call computes any of these functions
+            # no single PyTorch call computes any of these functions;
+            # "replaces" is None for the smoothers, which had no TPU kernel
             "library_ms": None, "by_path": by_path,
             "off_path": off_path[name]})
     return report

@@ -901,37 +901,22 @@ class RenderProgram:
     # ------------------------------------------------------------------
 
     def _smooth_all_params(self, smoother_state, host, dev):
-        """Run every parameter group's smoother as one batched computation;
-        returns (new_smoother_states, values[key] -> [P, n])."""
+        """Run every parameter group's smoother, each group as one batched
+        computation (one kernel launch on the card,
+        ``ops/smoothing.smooth_group``); returns (new_smoother_states,
+        values[key] -> [P, n]).  A group's events may be per lane over a
+        shared state (the first per-lane block widens it from [P] to
+        [L*P] rows, lane-major) or shared over per-lane states (every lane
+        takes them)."""
         n = self.ctx.block_frames
         sr = self.ctx.sample_rate
         new_states, group_values = {}, {}
         for gi, key in enumerate(self._param_groups):
             kind, arg = key
-            t, v, r = dev[f"p{gi}.t"], dev[f"p{gi}.v"], dev.get(f"p{gi}.r")
-            st = smoother_state[key]
-            carried = tree_leaves(st)[0].shape[0]
-            if t.shape[0] > carried:
-                # the first per-lane block: every lane carries on from the
-                # shared rows, [P] -> [L*P] lane-major (a copy, exact)
-                st = tree_map(lambda a: a.repeat(self.lanes), st)
-            elif t.shape[0] < carried:
-                # shared events for per-lane rows: every lane takes them
-                t, v = t.repeat(self.lanes, 1), v.repeat(self.lanes, 1)
-                r = None if r is None else r.repeat(self.lanes, 1)
-            ev = smoothing.SegmentEvents(t, v, host[f"p{gi}.live"])
-            if kind == "exponential":
-                new, vals = smoothing.exp_smoother_block(
-                    st, ev, n, smoothing.exp_alpha(arg, sr))
-            elif kind == "linear":
-                new, vals = smoothing.lin_smoother_block(st, ev, n)
-            elif kind == "spring":
-                new, vals = smoothing.spring_smoother_block(
-                    st, ev, n, smoothing.spring_omega(arg), sr)
-            else:
-                new, vals = smoothing.step_targets(st, ev, r, n)
-            new_states[key] = new
-            group_values[key] = vals
+            ev = smoothing.SegmentEvents(dev[f"p{gi}.t"], dev[f"p{gi}.v"],
+                                         host[f"p{gi}.live"])
+            new_states[key], group_values[key] = smoothing.smooth_group(
+                kind, arg, sr, smoother_state[key], ev, n, dev.get(f"p{gi}.r"))
         return new_states, group_values
 
     def step(self, state, inputs):

@@ -40,6 +40,8 @@ _SIGNATURES = {
     "phonic_iir2_scratch": ([_I, _L], _L),
     "phonic_follower": ([_I] + [_P] * 6 + [_I, _L, _P], _I),
     "phonic_gate": ([_I] + [_P] * 9 + [_I, _L, _P], _I),
+    "phonic_smooth": ([_I, _I, _I] + [_P] * 9 + [_I] * 4 + [_L, _I, _P, _P],
+                      _I),
     "phonic_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -15,18 +15,34 @@ The reference's ramp-termination ("snap") rule is modelled exactly for the
 exponential and linear smoothers: ramping stops once the per-sample increment
 falls below ``100 * f32::EPSILON`` (src/utils/smoothing.rs:196-216), after
 which the *output* is the target while the internal state stays frozen.
+
+A graph's step runs each group through :func:`smooth_group`, routed by the
+device of the tensors:
+
+- CUDA tensors run the hand-written kernel in ``csrc/smooth.cu``
+  (:func:`smooth_kernel`), one launch per group, always, or raise.  It
+  repeats the functions below operation for operation and agrees with them
+  bit for bit on the card;
+- CPU tensors run the plain PyTorch versions below
+  (:func:`smooth_group_plain`).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import kernels, tracing
 from ..config import SMOOTHER_EPSILON, SMOOTHER_REFERENCE_SR
 from . import consts
+
+# the floor the smoothers clamp to before a division or a log
+_TINY = 1e-38
 
 
 class SegmentEvents(NamedTuple):
@@ -128,7 +144,7 @@ def _exp_steps_to_freeze(delta, alpha, log1ma):
     """Number of ramp steps until |delta| * alpha * (1-alpha)^n <= eps."""
     ad = alpha * torch.abs(delta)
     n = torch.ceil(torch.log(torch.clamp(
-        SMOOTHER_EPSILON / torch.clamp(ad, min=1e-38), min=1e-38)) / log1ma)
+        SMOOTHER_EPSILON / torch.clamp(ad, min=_TINY), min=_TINY)) / log1ma)
     return torch.where(ad <= SMOOTHER_EPSILON, 0.0, torch.clamp(n, min=0.0))
 
 
@@ -253,6 +269,23 @@ def spring_omega(duration_samples: float = 4410.0) -> float:
     return 5.5 / float(duration_samples)
 
 
+def _spring_matrix(omega: float, sample_rate: int):
+    """The update matrix on (v, e), e = current - target, and its
+    eigenvalues, in float64 on the host: (m11, m12, m21, m22, l1, l2,
+    1 / (l1 - l2), or 0 where the two are equal)."""
+    w = omega * (SMOOTHER_REFERENCE_SR / float(sample_rate))
+    k = w * w
+    d = 2.0 * w
+    m11, m12 = 1.0 - d, -k
+    m21, m22 = 1.0 - d, 1.0 - k
+    tr = m11 + m22
+    disc = math.sqrt(max(tr * tr - 4.0 * (1.0 - d), 0.0))
+    l1 = (tr + disc) / 2.0
+    l2 = (tr - disc) / 2.0
+    inv_dl = 1.0 / (l1 - l2) if disc > 0 else 0.0
+    return m11, m12, m21, m22, l1, l2, inv_dl
+
+
 def spring_smoother_block(state: SpringSmootherState, events: SegmentEvents,
                           block_frames: int, omega: float, sample_rate: int):
     """Critically-damped spring: per-sample update
@@ -262,17 +295,7 @@ def spring_smoother_block(state: SpringSmootherState, events: SegmentEvents,
     termination epsilon applies per sample on the analytic trajectory."""
     n = block_frames
     dev = state.current.device
-    w = omega * (SMOOTHER_REFERENCE_SR / float(sample_rate))
-    k = w * w
-    d = 2.0 * w
-    # update matrix on (v, e) with e = current - target
-    m11, m12 = 1.0 - d, -k
-    m21, m22 = 1.0 - d, 1.0 - k
-    tr = m11 + m22
-    disc = math.sqrt(max(tr * tr - 4.0 * (1.0 - d), 0.0))
-    l1 = (tr + disc) / 2.0
-    l2 = (tr - disc) / 2.0
-    inv_dl = 1.0 / (l1 - l2) if disc > 0 else 0.0
+    m11, m12, m21, m22, l1, l2, inv_dl = _spring_matrix(omega, sample_rate)
     l1_t = consts.const(l1, torch.float32, dev)
     l2_t = consts.const(l2, torch.float32, dev)
 
@@ -281,7 +304,7 @@ def spring_smoother_block(state: SpringSmootherState, events: SegmentEvents,
         M^p = (l1^p (M-l2 I) - l2^p (M-l1 I)) / (l1-l2)."""
         l1p = torch.exp(torch.log(l1_t) * p) if l1 > 0 else torch.pow(l1_t, p)
         l2p = torch.pow(torch.sign(l2_t), p) * torch.exp(
-            torch.log(torch.abs(l2_t) + 1e-38) * p)
+            torch.log(torch.abs(l2_t) + _TINY) * p)
         c1 = l1p * inv_dl
         c2 = l2p * inv_dl
         a_v = (m11 - l2) * v0 + m12 * e0
@@ -344,3 +367,137 @@ def step_targets(current: torch.Tensor, events: SegmentEvents,
         vals = vals + d[:, k:k + 1] * torch.where(
             ramps[:, k:k + 1] > 0, ramp_g, jump_g)
     return seg_vals[:, -1], vals
+
+
+# ---------------------------------------------------------------------------
+# One group's block: the kernel on the card, the functions above on the CPU
+# ---------------------------------------------------------------------------
+
+# kind -> (the kernel's kind, the state's NamedTuple; None: one [P] tensor)
+_KINDS = {"exponential": (0, ExpSmootherState),
+          "linear": (1, LinSmootherState),
+          "spring": (2, SpringSmootherState), "step": (3, None)}
+_KERNEL_PARAMS = 12  # csrc/smooth.cu kParams
+_MAX_EVENTS = 64  # csrc/smooth.cu kMaxSegs - 1
+
+
+@functools.lru_cache(maxsize=256)
+def _kernel_params(kind: str, arg: float, sample_rate: int):
+    """The kernel's host constants for a group, rounded to float32 as
+    PyTorch rounds a Python scalar: exponential (alpha, eps, tiny); spring
+    (l1, l2, 1 / (l1 - l2), m11 - l2, m12, m21, m22 - l2, m11 - l1,
+    m22 - l1, eps, tiny, l1 > 0), each difference taken in float64 first,
+    as the plain version takes it."""
+    if kind == "exponential":
+        vals = [exp_alpha(arg, sample_rate), SMOOTHER_EPSILON, _TINY]
+    elif kind == "spring":
+        m11, m12, m21, m22, l1, l2, inv_dl = _spring_matrix(
+            spring_omega(arg), sample_rate)
+        vals = [l1, l2, inv_dl, m11 - l2, m12, m21, m22 - l2, m11 - l1,
+                m22 - l1, SMOOTHER_EPSILON, _TINY, 1.0 if l1 > 0 else 0.0]
+    else:
+        vals = []
+    vals += [0.0] * (_KERNEL_PARAMS - len(vals))
+    return (ctypes.c_float * _KERNEL_PARAMS)(*np.float32(vals).tolist())
+
+
+def _fields(kind: str, state) -> list:
+    return [state] if _KINDS[kind][1] is None else list(state)
+
+
+def _group_rows(kind: str, state, events: SegmentEvents):
+    """(state rows, event rows, rows): a group has the larger of the two
+    row counts, which each must divide (lanes: shared events for per-lane
+    states, or per-lane events for a state not yet widened)."""
+    s = _fields(kind, state)[0].shape[0]
+    e = events.times.shape[0]
+    r = max(s, e)
+    if r % s or r % e:
+        raise ValueError(f"smoother {kind}: {s} state rows and {e} event "
+                         "rows do not tile")
+    return s, e, r
+
+
+def smooth_kernel(kind: str, arg: float, sample_rate: int, state,
+                  events: SegmentEvents, block_frames: int, ramps=None):
+    """Kernel 6 (``csrc/smooth.cu``): one smoother group's block in one
+    launch.  ``kind`` and ``arg`` as the engine keys a group (exponential:
+    the inertia; linear: its step, which the state carries; spring: the
+    duration in samples; step: unused); ``state`` the kind's state, [S]
+    contiguous float32 CUDA tensors; ``events`` [E, K] (int32 or int64
+    times), and for the step kind ``ramps`` [E, K] float32.  Row r of the
+    R = max(S, E) rows reads state row r % S and event row r % E.  Returns
+    (new state, values [R, block_frames]): on the card the numbers of
+    :func:`smooth_group_plain`, bit for bit."""
+    code, cls = _KINDS[kind]
+    t, v = events.times, events.values
+    kernels.require(t, "smooth times", ndim=2, dtype=t.dtype)
+    if t.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"smooth times: expected int32 or int64, got {t.dtype}")
+    kernels.require(v, "smooth values", ndim=2, device=t.device)
+    if v.shape != t.shape:
+        raise ValueError(f"smooth values: shape {tuple(v.shape)}, expected "
+                         f"{tuple(t.shape)}")
+    fields = _fields(kind, state)
+    for i, f in enumerate(fields):
+        kernels.require(f, f"smooth state field {i}", ndim=1, device=t.device)
+        if f.shape != fields[0].shape:
+            raise ValueError(f"smooth state field {i}: {f.shape[0]} rows, "
+                             f"expected {fields[0].shape[0]}")
+    if kind == "step":
+        if ramps is None:
+            raise ValueError("smooth step: ramps are required")
+        kernels.require(ramps, "smooth ramps", ndim=2, device=t.device)
+        if ramps.shape != t.shape:
+            raise ValueError(f"smooth ramps: shape {tuple(ramps.shape)}, "
+                             f"expected {tuple(t.shape)}")
+    s, e, r = _group_rows(kind, state, events)
+    k = t.shape[1]
+    if k > _MAX_EVENTS or not 1 <= events.live <= k + 1:
+        raise ValueError(f"smooth: {k} event slots and {events.live} live "
+                         f"segments (at most {_MAX_EVENTS} slots)")
+    out = torch.empty((r, block_frames), dtype=torch.float32, device=t.device)
+    st_out = torch.empty((len(fields), r), dtype=torch.float32,
+                         device=t.device)
+    ptrs = [f.data_ptr() for f in fields] + [None] * (4 - len(fields))
+    err = kernels.library().phonic_smooth(
+        t.device.index, code, int(t.dtype == torch.int64), t.data_ptr(),
+        v.data_ptr(), None if ramps is None else ramps.data_ptr(), *ptrs,
+        st_out.data_ptr(), out.data_ptr(), s, e, r, k, block_frames,
+        events.live, _kernel_params(kind, float(arg), int(sample_rate)),
+        kernels.stream_handle(t))
+    kernels.check(err, "smooth")
+    tracing.count("kernel.smooth")
+    new = st_out[0] if cls is None else cls(*st_out.unbind(0))
+    return new, out
+
+
+def smooth_group_plain(kind: str, arg: float, sample_rate: int, state,
+                       events: SegmentEvents, block_frames: int, ramps=None):
+    """Plain version of :func:`smooth_kernel`: the rows widened by a copy
+    (``repeat``, lane-major), then the kind's function above."""
+    s, e, r = _group_rows(kind, state, events)
+    if s < r:  # the first per-lane block: every lane carries on
+        state = (state.repeat(r // s) if _KINDS[kind][1] is None
+                 else type(state)(*(a.repeat(r // s) for a in state)))
+    elif e < r:  # shared events for per-lane rows: every lane takes them
+        events = SegmentEvents(events.times.repeat(r // e, 1),
+                               events.values.repeat(r // e, 1), events.live)
+        ramps = None if ramps is None else ramps.repeat(r // e, 1)
+    n = block_frames
+    if kind == "exponential":
+        return exp_smoother_block(state, events, n, exp_alpha(arg, sample_rate))
+    if kind == "linear":
+        return lin_smoother_block(state, events, n)
+    if kind == "spring":
+        return spring_smoother_block(state, events, n, spring_omega(arg),
+                                     sample_rate)
+    return step_targets(state, events, ramps, n)
+
+
+def smooth_group(kind: str, arg: float, sample_rate: int, state,
+                 events: SegmentEvents, block_frames: int, ramps=None):
+    """One smoother group's block, ``(new state, values [R, n])``: the
+    kernel for CUDA tensors, the plain version for CPU ones."""
+    fn = smooth_kernel if events.times.is_cuda else smooth_group_plain
+    return fn(kind, arg, sample_rate, state, events, block_frames, ramps)

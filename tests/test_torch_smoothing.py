@@ -10,6 +10,12 @@ by an ulp between the libraries).  The spring's closed form subtracts two
 nearly equal eigen-terms (a critically damped spring has l1 ~ l2, and the
 terms scale with 1/(l1 - l2)), which amplifies those ulps; it is held to
 the engine-wide -90 dB of the value range.
+
+The engine's entry, ``smooth_group``, is checked on the CPU: CPU tensors
+take the plain version and never the kernel, a group's rows widen
+lane-major as the engine carries lanes, and the kernel's host constants
+round as PyTorch rounds the plain version's scalars (the kernel itself is
+checked on the card, tests/test_torch_smoothing_cuda.py).
 """
 
 import numpy as np
@@ -19,6 +25,7 @@ import pytest
 import torch
 
 from phonic_tpu.ops import smoothing as js
+from phonic_tpu_torch import tracing
 from phonic_tpu_torch.ops import smoothing as ps
 
 N = 1024
@@ -100,3 +107,109 @@ def test_live_segments_skip_only_empty_tails():
     t, v, _ = _events(0)
     assert ps.segment_events(t, v, N, "cpu").live == K + 1
     assert ps.segment_events(t[:1], v[:1], N, "cpu").live == 1
+
+
+# ---------------------------------------------------------------------------
+# smooth_group: the engine's entry, routed by device
+# ---------------------------------------------------------------------------
+
+GROUPS = (("exponential", 1.0 / 256.0), ("linear", 0.01), ("spring", 300.0),
+          ("step", 0.0))
+
+
+def _group_state(kind, arg, rows):
+    v = torch.as_tensor(np.linspace(-1.0, 2.0, rows, dtype=np.float32))
+    if kind == "exponential":
+        return ps.exp_smoother_init(v)
+    if kind == "linear":
+        return ps.lin_smoother_init(v, arg, SR)
+    if kind == "spring":
+        return ps.spring_smoother_init(v)
+    return v
+
+
+def _group_events(rows, seed):
+    t, v, r = _events(seed)
+    reps = -(-rows // t.shape[0])
+    t, v, r = (np.tile(x, (reps, 1))[:rows] for x in (t, v, r))
+    return ps.segment_events(t, v, N, "cpu"), torch.as_tensor(r)
+
+
+def _leaves(res):
+    state, vals = res
+    state = [state] if isinstance(state, torch.Tensor) else list(state)
+    return state + [vals]
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """CPU tensors never reach kernel 6: the launch counter stays 0, the
+    result is the kind's plain function, and the kernel's wrapper refuses
+    CPU tensors."""
+    tracing.reset()
+    tracing.enable()
+    try:
+        for kind, arg in GROUPS:
+            st = _group_state(kind, arg, 5)
+            ev, r = _group_events(5, 0)
+            got = ps.smooth_group(kind, arg, SR, st, ev, N, r)
+            want = ps.smooth_group_plain(kind, arg, SR, st, ev, N, r)
+            for a, b in zip(_leaves(got), _leaves(want)):
+                assert torch.equal(a, b), kind
+        assert tracing.counters().get("kernel.smooth", 0) == 0
+    finally:
+        tracing.disable()
+    for kind, arg in GROUPS:
+        st = _group_state(kind, arg, 5)
+        ev, r = _group_events(5, 0)
+        with pytest.raises(ValueError, match="CUDA"):
+            ps.smooth_kernel(kind, arg, SR, st, ev, N, r)
+
+
+@pytest.mark.parametrize("kind,arg", GROUPS)
+@pytest.mark.parametrize("widen", ["per-lane events", "shared events"])
+def test_smooth_group_widens_rows_lane_major(kind, arg, widen):
+    """A group whose events are per lane over a shared state carries every
+    lane on from that state; shared events over per-lane states reach every
+    lane: both equal the kind's function on rows tiled lane-major."""
+    lanes, rows = 3, 5
+    if widen == "per-lane events":
+        st = _group_state(kind, arg, rows)
+        ev, r = _group_events(lanes * rows, 1)
+        tiled_st = (st.repeat(lanes) if kind == "step"
+                    else type(st)(*(a.repeat(lanes) for a in st)))
+        tiled_ev, tiled_r = ev, r
+    else:
+        st = _group_state(kind, arg, lanes * rows)
+        ev, r = _group_events(rows, 1)
+        tiled_st = st
+        tiled_ev = ps.SegmentEvents(ev.times.repeat(lanes, 1),
+                                    ev.values.repeat(lanes, 1), ev.live)
+        tiled_r = r.repeat(lanes, 1)
+    got = ps.smooth_group(kind, arg, SR, st, ev, N, r)
+    want = ps.smooth_group_plain(kind, arg, SR, tiled_st, tiled_ev, N, tiled_r)
+    for a, b in zip(_leaves(got), _leaves(want)):
+        assert a.shape[0] == lanes * rows
+        assert torch.equal(a, b)
+
+
+def test_smooth_group_rows_must_tile():
+    ev, r = _group_events(3, 0)
+    with pytest.raises(ValueError, match="tile"):
+        ps.smooth_group("step", 0.0, SR, _group_state("step", 0.0, 5), ev, N,
+                        r)
+
+
+def test_kernel_constants_round_as_pytorch_does():
+    """The kernel's host constants are the float32 values PyTorch gives the
+    plain version's Python scalars and constant tensors."""
+    alpha = ps.exp_alpha(1.0 / 256.0, SR)
+    got = list(ps._kernel_params("exponential", 1.0 / 256.0, SR))
+    assert got[:3] == [float(torch.tensor(x, dtype=torch.float32)) for x in
+                       (alpha, ps.SMOOTHER_EPSILON, 1e-38)]
+    m11, m12, m21, m22, l1, l2, inv_dl = ps._spring_matrix(
+        ps.spring_omega(300.0), SR)
+    want = [l1, l2, inv_dl, m11 - l2, m12, m21, m22 - l2, m11 - l1, m22 - l1]
+    got = list(ps._kernel_params("spring", 300.0, SR))
+    assert got[:9] == [float(torch.tensor(x, dtype=torch.float32))
+                       for x in want]
+    assert got[11] == 1.0 and got[10] > 0.0
