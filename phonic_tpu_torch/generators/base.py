@@ -60,6 +60,13 @@ class NoteEvent:
     value: float = 0.0  # set_* target value
     glide: Optional[float] = None  # semitones/sec for set_spd
 
+    def plain(self) -> tuple:
+        """The event as a tuple of its fields (``NoteEvent(*plain)`` makes
+        it again): plain values that the garbage collector stops tracking,
+        so that a long session's events do not slow each collection."""
+        return (self.time, self.kind, self.note, self.note_id, self.volume,
+                self.panning, self.value, self.glide)
+
 
 class Generator(Source):
     """Note-event front-end.  Subclasses implement the voice rendering and an
@@ -68,6 +75,8 @@ class Generator(Source):
     def __init__(self, options: Optional[GeneratorPlaybackOptions] = None, name=None):
         super().__init__(name)
         self.options = (options or GeneratorPlaybackOptions()).validate()
+        # scheduled events not yet taken by the generator's lowering (the
+        # port's voice plan keeps those it took as NoteEvent.plain tuples)
         self.events: list[NoteEvent] = []
 
     def note_on(self, note: int, volume: float = 1.0, panning: float = 0.0,

@@ -10,21 +10,24 @@ envelope triggered at full volume (velocity scales the amplifier);
 voice stealing free -> longest-releasing -> oldest (sampler.rs:826-860);
 FourCC parameters STRN/SFTN/SVOL/SPAN + AHDSR AATK/AHLD/ADCY/ASTN/AREL.
 
-The host-side allocator (a copy of the JAX package's) replays the steal
-policy over the scheduled note timeline and lowers each block into
-per-voice arrays: one *continuing* note descriptor plus at most one
-*retrigger* (steal) descriptor per voice.  ``process`` renders the voices of
-a generator pool (graph/batching.LeafBatch) over explicit ``[G, V]``
-sampler and voice dimensions: sample positions are float64 cumsums rounded
-once to float32, envelopes the closed-form AHDSR (ops/ahdsr.py), so a steal
-mid-block is exact — the old note's tail renders up to the trigger, the new
-note from it.  The two notes of a voice are live at disjoint samples, so
-each voice reads ONE merged position stream, looped or not; the pool reads
-every voice of every sampler in one ``ramp_read``.
+The voice plan (generators/plan.py) places the scheduled notes on voices
+with the steal policy, block by block, and each block lowers into per-voice
+arrays: one *continuing* note descriptor and a *trigger* slot for every
+note that starts on the voice in the block (K slots, a power of two, the
+unused ones past the block).  ``process`` renders the voices of a
+generator pool (graph/batching.LeafBatch) over explicit ``[G, V]`` sampler
+and voice dimensions: sample positions are float64 cumsums rounded once to
+float32, envelopes the closed-form AHDSR (ops/ahdsr.py), so a note that
+starts mid-block is exact: the voice's previous note renders up to the
+trigger, the new note from it.  The notes of a voice are live at disjoint
+samples, so each voice reads ONE merged position stream, looped or not; the
+pool reads every voice of every sampler in one ``ramp_read``.
 
-Known deviations (as in the JAX package): AHDSR parameter changes re-shape
-the envelope of already sounding notes analytically; more than one steal of
-the same voice within one block keeps only the last note.
+Known deviation (as in the JAX package): AHDSR parameter changes re-shape
+the envelope of already sounding notes analytically.  Where a voice starts
+several notes in one block the port renders each of them, as upstream
+does; the JAX package renders only the last (its lowering keeps one
+trigger per voice), and so does this port's granular sampler.
 
 Granular playback (``with_granular_playback``) renders each voice as a
 pool of grains (generators/granular.py) with the modulation matrix
@@ -43,7 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..events import ParamTimeline
+from .. import tracing
 from ..graph.nodes import BuildCtx
 from ..io.decoder import AudioFileBuffer
 from ..modulation.matrix import (
@@ -57,12 +60,13 @@ from ..ops.precision import recip32
 from ..ops.smoothing import SegmentEvents, step_targets
 from ..params import (DecibelScaling, EnumParameter, ExponentialScaling,
                       FloatParameter, IntegerParameter, format_gain, format_pan)
-from .base import Generator, GeneratorPlaybackOptions
+from .base import Generator, GeneratorPlaybackOptions, NoteEvent
 from .granular import (
     DIRECTIONS, NEVER, OVERLAP_MODES, POOL_SIZE, WINDOW_MODES, GranularConfig,
     grain_mix, grain_state_init, granular_voice_alloc, source_table,
     window_table,
 )
+from .plan import NoteSegment, VoicePlan
 
 # granular renders in chunks of this size when the block is a larger
 # multiple of it: a slot is reusable only once its grain expired before the
@@ -137,26 +141,6 @@ class AhdsrConfig:
     release: float = 0.05
 
 
-@dataclasses.dataclass
-class _Segment:
-    start: int
-    note: int
-    note_id: int
-    volume: float
-    panning: float
-    release: float = math.inf  # absolute frame of note-off
-    cut: float = math.inf  # absolute frame where a steal hard-cuts the voice
-    # per-note automation (reference: GeneratorPlaybackEvent::SetVolume /
-    # SetPanning / SetSpeed, voice.rs:238-300); created lazily on first event
-    vol_tl: object = None
-    pan_tl: object = None
-    spd_tl: object = None
-
-    def speed0(self) -> float:
-        """Note-derived speed multiplier before automation."""
-        return 2.0 ** ((self.note - 60) / 12.0)
-
-
 class Sampler(Generator):
     PARAMS = (TRANSPOSE, FINETUNE, VOLUME, PANNING,
               ENV_ATTACK, ENV_HOLD, ENV_DECAY, ENV_SUSTAIN, ENV_RELEASE)
@@ -180,7 +164,8 @@ class Sampler(Generator):
         self.mod_config = self.modulation.config
         self.seed = 0x6A17
         self._loop_msgs: list = []  # (time, Optional[(start, end)])
-        self._plan_cache = None
+        self._plan = None  # the voice plan, made at the first lowering
+        self._taken = []  # the events taken from ``events``, as tuples
         self._mono_cache = None
         self._timelines = {}  # set by the RenderProgram that owns the node
         self.PARAMS = Sampler.PARAMS  # extended by with_granular_playback
@@ -355,7 +340,7 @@ class Sampler(Generator):
     # host-side voice allocation (reference steal policy, sampler.rs:826-860)
     # ------------------------------------------------------------------
 
-    def _voice_end(self, seg: _Segment, ctx_sr: int) -> float:
+    def _voice_end(self, seg: NoteSegment, ctx_sr: int) -> float:
         """Frame at which the voice becomes free again."""
         if self.envelope is not None:
             if seg.release is math.inf:
@@ -372,81 +357,29 @@ class Sampler(Generator):
             end = min(end, seg.release + self.options.fade_out_secs * ctx_sr + 1)
         return min(end, seg.cut)
 
-    def _allocate(self, sample_rate: int):
-        """Replay the event timeline into per-voice segment lists."""
-        if self._plan_cache is not None and self._plan_cache[0] == (
-            len(self.events), sample_rate
-        ):
-            return self._plan_cache[1]
-        voices: list[list[_Segment]] = [[] for _ in range(self.options.voices)]
-        by_id: dict[int, _Segment] = {}
-        events = sorted(self.events, key=lambda e: (e.time, e.note_id))
-        for ev in events:
-            t = ev.time
-            if ev.kind == "on":
-                # find a free voice, else steal
-                idx = None
-                for v, segs in enumerate(voices):
-                    if not segs or self._voice_end(segs[-1], sample_rate) <= t:
-                        idx = v
-                        break
-                if idx is None:
-                    # steal priority (reference sampler.rs:826-860):
-                    # a) with an envelope, the longest-releasing voice
-                    #    (earliest release start; without an envelope the
-                    #    reference never checks the release stage), then
-                    # b) the oldest active voice by playback id
-                    releasing = [
-                        (segs[-1].release, v) for v, segs in enumerate(voices)
-                        if segs[-1].release <= t
-                    ] if self.envelope is not None else []
-                    if releasing:
-                        idx = min(releasing)[1]
-                    else:
-                        idx = min(range(len(voices)),
-                                  key=lambda v: voices[v][-1].note_id)
-                last = voices[idx][-1] if voices[idx] else None
-                if last is not None and self._voice_end(last, sample_rate) > t:
-                    last.cut = min(last.cut, t)
-                seg = _Segment(t, ev.note, ev.note_id, ev.volume, ev.panning)
-                voices[idx].append(seg)
-                by_id[ev.note_id] = seg
-            elif ev.kind == "off":
-                seg = by_id.get(ev.note_id)
-                if seg is not None and seg.release is math.inf:
-                    seg.release = float(max(t, seg.start))
-            elif ev.kind == "all_off":
-                for segs in voices:
-                    for seg in segs:
-                        if seg.start <= t and seg.release is math.inf:
-                            seg.release = float(t)
-            elif ev.kind in ("set_vol", "set_pan", "set_spd"):
-                seg = by_id.get(ev.note_id)
-                if seg is None or t < seg.start:
-                    continue
-                if ev.kind == "set_vol":
-                    if seg.vol_tl is None:
-                        seg.vol_tl = ParamTimeline(initial=seg.volume)
-                    seg.vol_tl.set_at(t, ev.value)
-                elif ev.kind == "set_pan":
-                    if seg.pan_tl is None:
-                        seg.pan_tl = ParamTimeline(initial=seg.panning)
-                    seg.pan_tl.set_at(t, ev.value)
-                else:
-                    if seg.spd_tl is None:
-                        seg.spd_tl = ParamTimeline(initial=seg.speed0())
-                    if ev.glide and ev.glide > 0.0:
-                        seg.spd_tl.set_glide_at(t, ev.value, ev.glide,
-                                                sample_rate)
-                    else:
-                        seg.spd_tl.set_at(t, ev.value)
-        self._plan_cache = ((len(self.events), sample_rate), voices)
-        return voices
+    def _voice_plan(self, sample_rate: int,
+                    block_start: int = None) -> VoicePlan:
+        """The generator's voice plan (generators/plan.py), with the events
+        scheduled since the last call (``events``) taken into it and kept,
+        as plain tuples, in ``_taken``.  A plan at another rate, or one that
+        has moved past ``block_start`` (a program that renders the generator
+        again from an earlier block), is made anew from every event taken
+        so far."""
+        plan = self._plan
+        if plan is None or plan.sr != sample_rate or (
+                block_start is not None and block_start < plan.pruned_to):
+            plan = self._plan = VoicePlan(self, sample_rate)
+            plan.take([NoteEvent(*e) for e in self._taken])
+        if self.events:
+            events, self.events = self.events, []
+            plan.take(events)
+            self._taken.extend(ev.plain() for ev in events)
+        return plan
 
     def duration_frames(self, ctx: BuildCtx) -> Optional[int]:
-        voices = self._allocate(ctx.sample_rate)
+        plan = self._voice_plan(ctx.sample_rate).finished()
         total = 0
-        for segs in voices:
+        for segs in plan.voices:
             for seg in segs:
                 end = self._voice_end(seg, ctx.sample_rate)
                 if end is math.inf:
@@ -459,10 +392,11 @@ class Sampler(Generator):
         # never falls back to a default
         self._sr = ctx.sample_rate
 
-    def _max_step_bound(self, voices, include_ratio: bool = True) -> float:
-        """Upper bound on any voice's per-sample read step: max note pitch
-        over every allocated segment (incl. set_note_speed automation knots)
-        x the transpose/finetune parameter bound x the rate ratio.
+    def _max_step_bound(self, plan: VoicePlan,
+                        include_ratio: bool = True) -> float:
+        """Upper bound on any voice's per-sample read step: the largest note
+        speed ever scheduled (incl. set_note_speed targets) x the
+        transpose/finetune parameter bound x the rate ratio.
 
         ``include_ratio=False`` gives the bound in SOURCE frames per output
         sample for a buffer already resampled to the engine rate (the
@@ -477,25 +411,43 @@ class Sampler(Generator):
 
         pitch = 2.0 ** (tl_max(TRANSPOSE.id, self.transpose) / 12.0
                         + tl_max(FINETUNE.id, self.finetune) / 1200.0)
-        spd = 1.0
-        for segs in voices:
-            for seg in segs:
-                spd = max(spd, seg.speed0())
-                if seg.spd_tl is not None and seg.spd_tl.values:
-                    spd = max(spd, max(seg.spd_tl.values))
         ratio = (self.buffer.sample_rate / self._sr) if include_ratio else 1.0
-        return pitch * spd * ratio
+        return pitch * plan.max_speed * ratio
+
+    def _trigger_slots(self) -> bool:
+        """Whether the lowering gives every note that starts on a voice in
+        a block a trigger slot (``_trig_*`` [V, K]), or only the last
+        (``_trig_*`` [V]): the granular voices render one trigger."""
+        return self.granular is None
 
     def lower_block_inputs(self, block_start: int, block_len: int):
-        """The block's voice arrays, equal to the JAX package's lowering
-        except for the read-window tag: ``_smax`` is the step bound
-        2**bucket (monotone over the program's life) itself."""
+        """The block's voice arrays: each voice's continuing note
+        (``_cont_*`` [V]) and the notes that start on it in the block, in
+        trigger slots ``_trig_*`` [V, K] sorted by time (unused slots at
+        ``block_len``; K a power of two), or, for the granular sampler and
+        the synth generator, the last of them (``_trig_*`` [V], as the JAX
+        package lowers).  ``_smax`` is the step bound 2**bucket (monotone
+        over the program's life), the JAX package's read-window tag."""
         if not hasattr(self, "_sr"):
             raise RuntimeError(
                 f"{type(self).__name__} lowered before prepare(); the node "
                 "must be part of a RenderProgram")
-        voices = self._allocate(self._sr)
+        with tracing.span("generator.plan"):
+            plan = self._voice_plan(self._sr, block_start)
+            notes = plan.block(block_start, block_len)
+        with tracing.span("generator.lower"):
+            return self._lower_notes(plan, notes, block_start, block_len)
+
+    def _lower_notes(self, plan: VoicePlan, notes, block_start: int,
+                     block_len: int) -> dict:
         v = self.options.voices
+        slots = self._trigger_slots()
+        if slots:
+            k = max((len(trigs) for _, trigs in notes), default=0)
+            k = 1 << max(k - 1, 0).bit_length()
+            shape = (v, k)
+        else:
+            shape = (v,)
         out = {
             "_cont_active": np.zeros(v, np.float32),
             "_cont_note": np.full(v, 60.0, np.float32),
@@ -504,51 +456,58 @@ class Sampler(Generator):
             "_cont_age0": np.zeros(v, np.int32),
             "_cont_rel": np.full(v, np.inf, np.float32),
             "_cont_spd": np.ones(v, np.float32),
-            "_trig_time": np.full(v, block_len, np.int32),
-            "_trig_note": np.full(v, 60.0, np.float32),
-            "_trig_vol": np.zeros(v, np.float32),
-            "_trig_pan": np.zeros(v, np.float32),
-            "_trig_rel": np.full(v, np.inf, np.float32),
-            "_trig_spd": np.ones(v, np.float32),
+            "_trig_time": np.full(shape, block_len, np.int32),
+            "_trig_note": np.full(shape, 60.0, np.float32),
+            "_trig_vol": np.zeros(shape, np.float32),
+            "_trig_pan": np.zeros(shape, np.float32),
+            "_trig_rel": np.full(shape, np.inf, np.float32),
+            "_trig_spd": np.ones(shape, np.float32),
         }
-        # Per-note automation events per lane (cont "ca" / trig "ta"), K
+        # Per-note automation events per note (cont "ca" / trig "ta"), K
         # knots per block so speed-glide ramps lower losslessly; emitted
         # only once ANY per-note automation exists
-        has_auto = any(ev.kind.startswith("set_") for ev in self.events)
+        has_auto = plan.has_auto
         ka = max(4, block_len // 512)
         if has_auto:
-            for lane in ("ca", "ta"):
+            for lane, sh in (("ca", (v,)), ("ta", shape)):
                 for nm in ("vol", "pan", "spd"):
-                    out[f"_{lane}_{nm}_t"] = np.full((v, ka), block_len,
+                    out[f"_{lane}_{nm}_t"] = np.full(sh + (ka,), block_len,
                                                      np.int32)
-                    out[f"_{lane}_{nm}_v"] = np.zeros((v, ka), np.float32)
-                    out[f"_{lane}_{nm}_r"] = np.zeros((v, ka), np.float32)
+                    out[f"_{lane}_{nm}_v"] = np.zeros(sh + (ka,), np.float32)
+                    out[f"_{lane}_{nm}_r"] = np.zeros(sh + (ka,), np.float32)
 
-        def _lower_auto(seg, lane, vi):
+        def _lower_auto(seg, lane, at):
             if not has_auto:
                 return
             for nm, tl in (("vol", seg.vol_tl), ("pan", seg.pan_tl),
                            ("spd", seg.spd_tl)):
                 if tl is not None:
                     t_, v_, r_ = tl.lower_block(block_start, block_len, ka)
-                    out[f"_{lane}_{nm}_t"][vi] = t_
-                    out[f"_{lane}_{nm}_v"][vi] = v_
-                    out[f"_{lane}_{nm}_r"][vi] = r_
+                    out[f"_{lane}_{nm}_t"][at] = t_
+                    out[f"_{lane}_{nm}_v"][at] = v_
+                    out[f"_{lane}_{nm}_r"][at] = r_
+
+        def _lower_trig(seg, at):
+            out["_trig_time"][at] = seg.start - block_start
+            out["_trig_note"][at] = seg.note
+            out["_trig_vol"][at] = seg.volume
+            out["_trig_pan"][at] = seg.panning
+            out["_trig_spd"][at] = seg.speed0()
+            if seg.release is not math.inf:
+                out["_trig_rel"][at] = seg.release - seg.start
+            _lower_auto(seg, "ta", at)
+
         if self.granular is not None:
             out["_mod_amt"] = self.modulation.amounts.copy()
             out["_mod_bip"] = self.modulation.bipolar.copy()
         # the read's inputs exist only where there is a buffer: a
         # SynthGenerator borrows this lowering and has none
         if getattr(self, "buffer", None) is not None:
-            self._lower_read_inputs(out, voices, block_start)
-        for vi, segs in enumerate(voices):
-            cont = None
-            trig = None
-            for seg in segs:
-                if seg.start < block_start and max(seg.cut, seg.start) > block_start:
-                    cont = seg
-                elif block_start <= seg.start < block_start + block_len:
-                    trig = seg  # keep the last
+            self._lower_read_inputs(out, plan, block_start)
+        segments = 0
+        for vi, (cont, trigs) in enumerate(notes):
+            segments += (cont is not None) + (len(trigs) if slots
+                                              else min(len(trigs), 1))
             if cont is not None:
                 out["_cont_active"][vi] = 1.0
                 out["_cont_note"][vi] = cont.note
@@ -563,20 +522,19 @@ class Sampler(Generator):
                 if cont.release is not math.inf:
                     out["_cont_rel"][vi] = cont.release - cont.start
                 # a cut without retrigger in this block: emulate via trig_time
-                if cont.cut is not math.inf and cont.cut < block_start + block_len and trig is None:
+                if (not slots and not trigs and cont.cut is not math.inf
+                        and cont.cut < block_start + block_len):
                     out["_trig_time"][vi] = int(cont.cut) - block_start
-            if trig is not None:
-                out["_trig_time"][vi] = trig.start - block_start
-                out["_trig_note"][vi] = trig.note
-                out["_trig_vol"][vi] = trig.volume
-                out["_trig_pan"][vi] = trig.panning
-                out["_trig_spd"][vi] = trig.speed0()
-                if trig.release is not math.inf:
-                    out["_trig_rel"][vi] = trig.release - trig.start
-                _lower_auto(trig, "ta", vi)
+            if slots:
+                for j, seg in enumerate(trigs):
+                    _lower_trig(seg, (vi, j))
+            elif trigs:
+                _lower_trig(trigs[-1], vi)  # one trigger: keep the last
+        tracing.count("generator.segments", segments)
         return out
 
-    def _lower_read_inputs(self, out: dict, voices, block_start: int):
+    def _lower_read_inputs(self, out: dict, plan: VoicePlan,
+                           block_start: int):
         """The lowered inputs of the buffer read: the step bound ``_smax``,
         the ``_loop_*`` inputs and the live buffer length."""
         if self.granular is not None:
@@ -585,11 +543,11 @@ class Sampler(Generator):
             # buffer is pre-resampled to the engine rate (ratio 1).  The
             # config's max_read_speed caps the bound either way.
             b = min(rs.speed_bucket(
-                        self._max_step_bound(voices, include_ratio=False)
+                        self._max_step_bound(plan, include_ratio=False)
                         * 2.0 ** (1.0 / 12.0)),
                     rs.speed_bucket(self.granular.max_read_speed))
         else:
-            b = rs.speed_bucket(self._max_step_bound(voices))
+            b = rs.speed_bucket(self._max_step_bound(plan))
         # step bound (monotone: a shrinking bound would change the clamp
         # mid-note)
         self._spd_bucket = max(b, getattr(self, "_spd_bucket", 0))
@@ -628,69 +586,87 @@ class Sampler(Generator):
 
         state: {"base", "frac"} [G, V]; params: each parameter [G, n];
         voices: the lowered arrays as tensors, [G] per sampler, [G, V] per
-        voice, [G, V, K] per automation knot; smax: the pool's step bound;
-        live: per automation ``_t`` key, the segments that can start in the
-        block (host-known, see ops/smoothing.SegmentEvents); read: positions
-        [G*V, n] -> audio [G*V, ch, n], the pool's one read.
+        voice, [G, V, K] per trigger slot, [G, V, (K,) knots] per
+        automation array; smax: the pool's step bound; live: per automation
+        ``_t`` key, the segments that can start in the block (host-known,
+        see ops/smoothing.SegmentEvents); read: positions [G*V, n] -> audio
+        [G*V, ch, n], the pool's one read.
+
+        Each voice plays its continuing note until its first trigger, then
+        each triggered note until the next: the notes are live at disjoint
+        samples, so the voice reads ONE merged position stream, and every
+        per-note quantity is picked per sample from a [G, V, K+1] table
+        (column 0 the continuing note, column j+1 trigger slot j).
         Returns (new state, audio [G, ch, n])."""
         n = ctx.block_frames
         g, v = state["base"].shape
         dev = state["base"].device
         ratio = float(np.float32(self.buffer.sample_rate / ctx.sample_rate))
         ii = torch.arange(n, dtype=torch.int32, device=dev)
+        t_time = voices["_trig_time"]  # [G, V, K], sorted, unused slots at n
+        k = t_time.shape[-1]
+
+        # each sample's note: the number of triggers at or before it
+        note_of = torch.searchsorted(
+            t_time.reshape(g * v, k), ii.expand(g * v, n).contiguous(),
+            right=True).view(g, v, n)
+
+        def per_note(cont, trig):  # [G, V], [G, V, K] -> [G, V, K+1]
+            return torch.cat([cont[..., None], trig], dim=-1)
+
+        def at(table):  # [G, V, K+1] -> each sample's note's value [G, V, n]
+            return table.gather(-1, note_of)
 
         def per_sampler(x):  # [G] -> [G, 1, 1]
             return x[:, None, None]
 
-        def per_voice(k):  # [G, V] -> [G, V, 1]
-            return voices[k][..., None]
-
         pitch = torch.exp2(params[TRANSPOSE.id] / 12.0
                            + params[FINETUNE.id] / 1200.0)[:, None, :]  # [G, 1, n]
 
-        def auto(lane, nm, current):
-            """Per-sample automated value of one descriptor (stepped or ramped
-            knots, ops/smoothing.step_targets), or the block's constant."""
+        def knots(lane, nm, current, rows):
+            """Per-sample automated values of ``rows`` notes (stepped or
+            ramped knots, ops/smoothing.step_targets)."""
             key = f"_{lane}_{nm}_t"
-            if key not in voices:
-                return current[..., None]
-            ev = SegmentEvents(voices[key].reshape(g * v, -1).long(),
-                               voices[f"_{lane}_{nm}_v"].reshape(g * v, -1),
+            ev = SegmentEvents(voices[key].reshape(rows, -1).long(),
+                               voices[f"_{lane}_{nm}_v"].reshape(rows, -1),
                                live[key])
-            ramps = voices[f"_{lane}_{nm}_r"].reshape(g * v, -1)
-            return step_targets(current.reshape(-1), ev, ramps, n)[1].reshape(
-                g, v, n)
+            ramps = voices[f"_{lane}_{nm}_r"].reshape(rows, -1)
+            return step_targets(current.reshape(-1), ev, ramps, n)[1]
 
-        def positions(spd, mask):
-            """Read steps and their running sum: the sum in float64, rounded
-            once, so that it does not depend on the device's order of
-            summation."""
-            # the JAX package's windowed reads need steps <= smax (never
-            # binds in-bucket); clamping here keeps the positions equal
-            speed = torch.clamp(pitch * spd * ratio, max=smax)
-            steps = torch.where(mask, speed, 0.0)
-            run = torch.cumsum(steps.to(torch.float64), dim=-1).to(torch.float32)
-            return steps, run, torch.cat(
-                [torch.zeros_like(run[..., :1]), run[..., :-1]], dim=-1)
+        def note_value(nm, cont, trig):
+            """Each sample's value of one note quantity: its note's
+            automation, or the note's constant."""
+            if f"_ca_{nm}_t" not in voices:
+                return at(per_note(cont, trig))
+            both = torch.cat([knots("ca", nm, cont, g * v).view(g, v, 1, n),
+                              knots("ta", nm, trig, g * v * k).view(g, v, k, n)],
+                             dim=2)
+            return both.gather(2, note_of[:, :, None]).squeeze(2)
 
-        t_time = voices["_trig_time"]
-        in_b = ii >= t_time[..., None]  # [G, V, n]: the retriggered note
-        switch = (t_time < n) & (voices["_trig_vol"] > 0.0)  # [G, V]
-        mask_a = (voices["_cont_active"] > 0.5)[..., None] & ~in_b
-        mask_b = in_b & switch[..., None]
-
-        # note A continues from the carried position; note B starts at 0
-        steps_a, _, rel_a = positions(auto("ca", "spd", voices["_cont_spd"]),
-                                      mask_a)
-        pos_a = (state["base"].to(torch.float32) + state["frac"])[..., None] + rel_a
-        steps_b, run_b, pos_b = positions(auto("ta", "spd", voices["_trig_spd"]),
-                                          mask_b)
-        end_pos = torch.where(switch, run_b[..., -1],
-                              pos_a[..., -1] + steps_a[..., -1])
+        # the read positions: the steps' running sum in float64, rounded
+        # once, so that it does not depend on the device's order of
+        # summation; the continuing note goes on from the carried position,
+        # a triggered note starts at 0
+        sounding = (note_of > 0) | (voices["_cont_active"] > 0.5)[..., None]
+        spd = note_value("spd", voices["_cont_spd"], voices["_trig_spd"])
+        # the JAX package's windowed reads need steps <= smax (never binds
+        # in-bucket); clamping here keeps the positions equal
+        steps = torch.where(sounding,
+                            torch.clamp(pitch * spd * ratio, max=smax), 0.0)
+        run = torch.cumsum(steps.to(torch.float64), dim=-1)
+        before = torch.cat([torch.zeros_like(run[..., :1]), run[..., :-1]],
+                           dim=-1)
+        origin = per_note(torch.zeros_like(run[..., 0]), before.gather(
+            -1, t_time.clamp(max=n - 1).long()))  # [G, V, K+1]
+        since = at(origin)
+        walked = (before - since).to(torch.float32)
+        carried = state["base"].to(torch.float32) + state["frac"]
+        cont = note_of == 0
+        pos = torch.where(cont, carried[..., None] + walked, walked)
+        end_pos = torch.where(cont[..., -1], pos[..., -1] + steps[..., -1],
+                              (run[..., -1] - since[..., -1]).to(torch.float32))
         new_base = torch.floor(end_pos)
 
-        # one merged stream per voice: the notes are live at disjoint samples
-        pos = torch.where(in_b & switch[..., None], pos_b, pos_a)
         frames_live = per_sampler(voices["_buf_frames"])
         if "_loop_on" in voices:
             loop_on = per_sampler(voices["_loop_on"] > 0.5)
@@ -701,20 +677,18 @@ class Sampler(Generator):
             pos = torch.where(loop_on, folded, pos)
         else:
             live_pos = pos < frames_live
-        mask = torch.where(in_b, mask_b, mask_a) & live_pos
+        mask = sounding & live_pos
         audio = read(pos.reshape(g * v, n)).reshape(g, v, -1, n)
 
         # the note each sample belongs to: age, note-off run, volume, pan
-        ages = torch.where(in_b, ii - t_time[..., None],
-                           per_voice("_cont_age0") + ii)
-        rel = torch.where(in_b, per_voice("_trig_rel"), per_voice("_cont_rel"))
+        ages = ii + at(per_note(voices["_cont_age0"], -t_time))
+        rels = per_note(voices["_cont_rel"], voices["_trig_rel"])
+        rel = at(rels)
         if self.envelope is not None:
             env_p = ahdsr_ops.ahdsr_params(
                 ctx.sample_rate, *(per_sampler(params[p.id][:, 0]) for p in (
                     ENV_ATTACK, ENV_HOLD, ENV_DECAY, ENV_SUSTAIN, ENV_RELEASE)))
-            level = torch.where(
-                in_b, ahdsr_ops.release_level(env_p, 1.0, per_voice("_trig_rel")),
-                ahdsr_ops.release_level(env_p, 1.0, per_voice("_cont_rel")))
+            level = at(ahdsr_ops.release_level(env_p, 1.0, rels))
             env = ahdsr_ops.ahdsr_values(env_p, 1.0, ages, rel, level)
         else:
             # one-shot: the de-click fade after note-off
@@ -725,10 +699,8 @@ class Sampler(Generator):
             down = torch.exp(fade_log1m * torch.clamp(agef - rel + 1.0, min=0.0))
             env = torch.where(agef < rel, 1.0,
                               torch.where(down < 1e-4, 0.0, down))
-        vol = torch.where(in_b, auto("ta", "vol", voices["_trig_vol"]),
-                          auto("ca", "vol", voices["_cont_vol"]))
-        pan = torch.where(in_b, auto("ta", "pan", voices["_trig_pan"]),
-                          auto("ca", "pan", voices["_cont_pan"]))
+        vol = note_value("vol", voices["_cont_vol"], voices["_trig_vol"])
+        pan = note_value("pan", voices["_cont_pan"], voices["_trig_pan"])
         base_vol = params[VOLUME.id][:, None, :]
         base_pan = params[PANNING.id][:, None, :]
         gain = env * (base_vol * vol) * mask.to(torch.float32)

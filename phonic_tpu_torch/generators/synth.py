@@ -7,9 +7,10 @@ pan) shared vars; note events allocate voices with the sampler's steal
 policy; frequency glides morph exponentially between notes
 (src/generator/fundsp/voice.rs:312-346, GlideState :538-560).
 
-The same host-side allocator as the Sampler lowers notes to per-voice
-descriptors (one continuing note plus at most one retrigger per voice and
-block).  ``render_lanes`` evaluates every voice's note logic over ``[V, n]``
+The Sampler's voice plan (generators/plan.py) places the notes, and its
+lowering gives per-voice descriptors: one continuing note plus at most one
+retrigger per voice and block (the last, as in the JAX package; the
+sampler gives every note that starts in the block a trigger slot).  ``render_lanes`` evaluates every voice's note logic over ``[V, n]``
 and renders all V voices in ONE call of the batched SynthDef
 (sources/synth.py), so sub3's filter is one iir2 launch of V rows.  Glides
 are exact exponential-in-pitch trajectories computed from the note ages.
@@ -85,7 +86,8 @@ class SynthGenerator(Generator):
         self.release_secs = float(release_secs)  # voice considered free after
         self.glide_secs = float(glide_secs)
         self.granular = None  # allocator shim (shared with Sampler)
-        self._plan_cache = None
+        self._plan = None  # the voice plan, made at the first lowering
+        self._taken = []  # the events taken from ``events``, as tuples
         # user-declared FourCC parameters (reference: fundsp Shared vars,
         # src/generator/fundsp.rs:88-99 + fundsp/parameter.rs:1-123)
         self.PARAMS = SynthGenerator.PARAMS + tuple(synth.params)
@@ -131,10 +133,16 @@ class SynthGenerator(Generator):
             out[p.id] = p.default
         return out
 
-    # voice allocation: reuse the Sampler's host allocator with a fixed
-    # release duration (and its prepare(): lowering needs the output rate)
-    _allocate = Sampler._allocate
+    # voice allocation: reuse the Sampler's voice plan with a fixed release
+    # duration (and its prepare(): lowering needs the output rate), one
+    # trigger per voice and block
+    _voice_plan = Sampler._voice_plan
+    _lower_notes = Sampler._lower_notes
+    duration_frames = Sampler.duration_frames
     prepare = Sampler.prepare
+
+    def _trigger_slots(self) -> bool:
+        return False
 
     def lower_block_inputs(self, block_start: int, block_len: int):
         out = Sampler.lower_block_inputs(self, block_start, block_len)
@@ -147,17 +155,6 @@ class SynthGenerator(Generator):
         if seg.release is math.inf:
             return math.inf
         return min(seg.release + self.release_secs * ctx_sr + 1, seg.cut)
-
-    def duration_frames(self, ctx: BuildCtx) -> Optional[int]:
-        voices = self._allocate(ctx.sample_rate)
-        total = 0
-        for segs in voices:
-            for seg in segs:
-                end = self._voice_end(seg, ctx.sample_rate)
-                if end is math.inf:
-                    return None
-                total = max(total, int(end))
-        return total
 
     def init_state(self, ctx: BuildCtx):
         self._sr = ctx.sample_rate

@@ -399,7 +399,9 @@ class LeafBatch:
 
         Every array is stacked over the nodes; a node that lacks an
         optional one (per-note automation knots, loop bounds) gets its
-        identity (knots past the block, zeros).  The int32 and float32
+        identity (knots and trigger slots past the block, zeros), and
+        arrays whose sizes differ between the nodes (a sampler's trigger
+        slots) are padded with it to the largest.  The int32 and float32
         arrays pack into one int32 array, float32 values by their bits, so
         the bank's inputs reach the device in one copy and split there
         (:meth:`voices`)."""
@@ -408,11 +410,18 @@ class LeafBatch:
                    default=None)
         stacked, live = {}, {}
         for k in sorted(set().union(*lowered) - {"_smax"}):
-            proto = np.asarray(next(d[k] for d in lowered if k in d))
-            ident = (np.full_like(proto, n) if k.endswith("_t")
-                     else np.zeros_like(proto))
-            a = np.stack([np.asarray(d.get(k, ident), proto.dtype)
-                          for d in lowered])
+            have = [np.asarray(d[k]) for d in lowered if k in d]
+            shape = tuple(np.max([a.shape for a in have], axis=0))
+            fill = n if k.endswith(("_t", "_time")) else 0
+            ident = np.full(shape, fill, have[0].dtype)
+
+            def padded(a):
+                a = np.asarray(a, ident.dtype)
+                if a.shape == shape:
+                    return a
+                return np.pad(a, [(0, m - s) for s, m in zip(a.shape, shape)],
+                              constant_values=fill)
+            a = np.stack([padded(d.get(k, ident)) for d in lowered])
             if a.dtype not in (np.int32, np.float32):
                 raise TypeError(f"{k}: lowered as {a.dtype}")
             stacked[k] = a

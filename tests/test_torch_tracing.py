@@ -125,7 +125,10 @@ def test_profiler_ranges_share_the_clock():
         state, _ = prog.step(state, prog.block_inputs(1))
         tracing.count("kernel.iir2", 2)
     sp = tracing.spans()
-    assert len(sp) >= 9 and tracing.counters() == {"kernel.iir2": 2}
+    # the sampler's voice plan counts its one note and lowered segment
+    assert len(sp) >= 9 and tracing.counters() == {
+        "kernel.iir2": 2, "generator.plan_events": 1,
+        "generator.segments": 1}
     t0 = prof.profiler.kineto_results.trace_start_ns()
     ranges = sorted((e for e in prof.events() if e.name.startswith("phonic.")),
                     key=lambda e: e.time_range.start)
