@@ -40,7 +40,12 @@ phase fails.  Phases:
    and after a tile boundary.  The smoother kernel must agree with its
    plain version bit for bit (values and every field of the new state) in
    every case of ``smooth_cases`` at n = 8192 and 131072, then at each
-   path's largest group (``SMOOTH_PATHS``), timed;
+   path's largest group (``SMOOTH_PATHS``), timed; the delay's kernel
+   against its plain loop (every output to -90 dB of its peak; the card
+   test ``tests/test_torch_delay_cuda.py`` holds it closer) at the
+   mastering chain's shape (one lane, 131072 samples, b = 8192, W =
+   50432), the mastering lanes cell's (8 lanes) and at b = 1024, each timed
+   beside the plain loop;
 3. the headline graph (16 file sources -> 4 sub-mixers with EQ5 + chorus ->
    reverb + gain, 131072-frame blocks at 48 kHz stereo) rendered on the card
    through ``RenderProgram.render``: the launch counters of its kernels
@@ -49,8 +54,10 @@ phase fails.  Phases:
    on the CPU to -90 dB of peak;
 4. the mastering chain (4 looping file sources -> gate -> compressor ->
    delay -> distortion -> limiter, 131072-frame blocks at 48 kHz stereo),
-   checked the same way; all six kernels' counters must grow.  It also
-   times one roll of the delay's window at its shapes;
+   checked the same way; the counters of ramp_read, the follower, the gate,
+   the smoothers and the delay must grow, the delay's by exactly one launch
+   per block, and iir2 and iir1 must not launch (the delay's feedback loop
+   is kernel 7);
 5. the sampler (bench.py's config 2: 64 voices with AHDSR envelopes over
    one 48000-frame tone, 64 notes 480 frames apart, 131072-frame blocks at
    48 kHz stereo), checked the same way; its generator pool reads every
@@ -157,14 +164,16 @@ phase fails.  Phases:
    each path's shape (``batched_headline``: B=128, R=64, R=16;
    ``graph_sharded``: a shard's B=8 and R=4, the master chains' shapes
    otherwise) and at the
-   byte-bound shapes off the paths (iir2 and iir1 at R=40); and the
+   byte-bound shapes off the paths (iir2 and iir1 at R=40, the delay at 8
+   lanes with b = 8192 and b = 1024); and the
    headline graph's rate once more, after the profiler.
 
 The line before the last is a JSON object with each kernel's numbers from
-this run: at top level those of the mastering chain, which runs all six
-kernels, under ``by_path`` those of each path (a path's second shape as
-``path/what``, sharing the path's launches) and under ``off_path`` those
-of the shapes timed off the paths.  The last line is
+this run: at top level those of the mastering chain (iir2's and iir1's:
+the headline's, since the mastering chain runs neither), under
+``by_path`` those of each path (a path's second shape as ``path/what``,
+sharing the path's launches) and under ``off_path`` those of the shapes
+timed off the paths.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -190,7 +199,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from phonic_tpu_torch import kernels, tracing
-from phonic_tpu_torch.effects.delay import DelayEffect
+from phonic_tpu_torch.effects import delay as delay_fx
 from phonic_tpu_torch.generators.granular import source_table
 from phonic_tpu_torch.granular1k import granular_program
 from phonic_tpu_torch.headline import mixer_graph_program, tone
@@ -198,7 +207,7 @@ from phonic_tpu_torch.io import wav as wav_io
 from phonic_tpu_torch.io.decoder import AudioFileBuffer
 from phonic_tpu_torch.mastering import mastering_program
 from phonic_tpu_torch.ops import (
-    chrono, follower, rampread, resample, scan, smoothing,
+    delayline, follower, rampread, resample, scan, smoothing,
 )
 from phonic_tpu_torch.play_file import (
     BLOCK_FRAMES as PLAY_BLOCK, file_program, play_file_program, render_file,
@@ -214,8 +223,10 @@ from phonic_tpu_torch.player_rt import (
     BLOCK_FRAMES as PLAYER_BLOCK, player_rt_player,
 )
 from phonic_tpu_torch.generators.synth import note_speed
+from phonic_tpu_torch.graph.batching import stack_states
 from phonic_tpu_torch.graph.mixer import Mixer
 from phonic_tpu_torch.graph.engine import RenderProgram
+from phonic_tpu_torch.graph.nodes import BuildCtx
 from phonic_tpu_torch.config import EngineConfig
 from phonic_tpu_torch.sampler64 import sampler_program
 from phonic_tpu_torch.sources.file import FilePlaybackOptions, FileSource
@@ -249,7 +260,8 @@ OPS_PER_SAMPLE = {"follower": 5, "gate": 15}
 
 # launch counters: kernel -> its counter in phonic_tpu_torch.tracing
 COUNTERS = {k: f"kernel.{k}" for k in
-            ("ramp_read", "iir2", "iir1", "follower", "gate", "smooth")}
+            ("ramp_read", "iir2", "iir1", "follower", "gate", "smooth",
+             "delay")}
 # the kernels whose machine code phase 1 summarises
 SASS_KERNELS = ("gate_kernel", "iir2_kernel", "iir1_kernel", "ramp_read_kernel")
 SOURCES = {"ramp_read": ("phonic_tpu_torch/csrc/rampread.cu",
@@ -263,7 +275,9 @@ SOURCES = {"ramp_read": ("phonic_tpu_torch/csrc/rampread.cu",
            "gate": ("phonic_tpu_torch/csrc/follower.cu",
                     "phonic_tpu/ops/follower.py:140"),
            # the JAX package's smoothers are plain jnp: no TPU kernel
-           "smooth": ("phonic_tpu_torch/csrc/smooth.cu", None)}
+           "smooth": ("phonic_tpu_torch/csrc/smooth.cu", None),
+           # the JAX package's delay loop is a lax.scan of jnp operations
+           "delay": ("phonic_tpu_torch/csrc/delay.cu", None)}
 
 
 def log(*args):
@@ -490,8 +504,7 @@ def check_kernels(dev):
     # (rows that start unaligned), one row and forty
     for r, t, path in ((8, BLOCK, "headline"),
                        (8 * LANES, BLOCK, "batched_headline"),
-                       (4, BLOCK, "graph_sharded"),
-                       (2, 8192, "mastering"),
+                       (4, BLOCK, "graph_sharded"), (2, 8192, None),
                        (8, PLAYER_BLOCK, "player"), (64, BLOCK, "synth_64v"),
                        (2, BLOCK, "synth_64v/filter"),
                        (1, 4095, None), (1, 4096, None),
@@ -510,7 +523,7 @@ def check_kernels(dev):
     # rows that start unaligned and cross a segment, forty rows
     for r, t, path in ((2, BLOCK, "headline"),
                        (2 * LANES, BLOCK, "batched_headline"),
-                       (2, 8192, "mastering"),
+                       (2, 8192, None),
                        (2, PLAYER_BLOCK, "player"), (2, 999, None),
                        (7, BLOCK, None), (7, 999, None),
                        (1, 8191, None), (1, 8192, None), (1, 8193, None),
@@ -524,6 +537,7 @@ def check_kernels(dev):
                fn, f"R={r} T={t}", timed=r == 40)
     check_dynamics(dev, rng, record)
     check_smoothers(dev, rng, record)
+    check_delay(dev, record)
     return results, off_path, calls
 
 
@@ -760,6 +774,77 @@ def check_smoothers(dev, rng, record):
         record("smooth", path, res, 4 * rows * n + nbytes(ev.times, ev.values)
                + 8 * rows, SMOOTH_OPS[kind] * rows * n, fn,
                f"{kind} P={rows} n={n}")
+
+
+# kernel 7's shapes: (lanes, minimum delay in ms -> the sub-block b at 48
+# kHz, path): the mastering chain's delay, the mastering lanes cell's 8
+# (b = 8192, W = 50432) and the default minimum delay (b = 1024)
+DELAY_SHAPES = ((1, 250.0, "mastering"), (LANES, 250.0, None),
+                (LANES, 40.0, None))
+# float32 operations per channel and sample: the read (4), the SVF map and
+# its step (12), the taps and mix (9), the saturation (10), the DC blocker
+# (3), the clamp (2) and the feedback mix (3)
+DELAY_OPS = 43
+
+
+def delay_operands(dev, lanes, min_ms, n=BLOCK):
+    """Operands of the feedback loop's second block for ``lanes`` delays
+    at the mastering chain's settings (300 ms, feedback 0.4, a 1000 ms
+    window) with the LFO on the delay time, over tones; the first block
+    rendered by the plain loop.  Returns (operands, sub-block, window)."""
+    ctx = BuildCtx(SR, 2, n, 16, torch.float32, dev)
+    fx = [delay_fx.DelayEffect(delay_ms=300.0, feedback=0.4, wet=0.3,
+                               min_delay_ms=min_ms,
+                               max_delay_capacity_ms=1000.0, lfo_to_time=0.5)
+          for _ in range(lanes)]
+    params = {k: torch.full((lanes, n), float(v), device=dev)
+              for k, v in fx[0].param_initials().items()}
+    t = torch.arange(2 * n, device=dev, dtype=torch.float64) / SR
+    hz = 110.0 * (1.0 + torch.arange(2 * lanes, device=dev)).reshape(lanes, 2, 1)
+    tones = (0.4 * torch.sin(2 * np.pi * hz * t)).float()
+    seen = []
+
+    def spy(*args):
+        seen.append(args)
+        return delayline.feedback_loop_plain(*args)
+
+    state = stack_states([e.init_state(ctx) for e in fx])
+    loop, delay_fx.feedback_loop = delay_fx.feedback_loop, spy
+    try:
+        for k in range(2):
+            state, _ = fx[0].process(
+                {key: (type(v)(*(f.contiguous() for f in v))
+                       if isinstance(v, tuple) else v.contiguous())
+                 for key, v in state.items()},
+                tones[..., k * n:(k + 1) * n].contiguous(), params, ctx)
+    finally:
+        delay_fx.feedback_loop = loop
+    args = seen[-1]
+    return args, fx[0]._subblock(ctx), args[1].shape[-1]
+
+
+def delay_outputs(res):
+    wet, line, svf, dc, fb = res
+    return (wet, line, *svf, *dc, fb)
+
+
+def check_delay(dev, record):
+    """Kernel 7 against the plain loop on the card at :data:`DELAY_SHAPES`
+    (every output, -90 dB of its peak as the other kernels; the card test
+    holds it closer), timed with the plain loop beside it.  The bytes: the
+    input, the nine per-sample streams and the old window read once, the
+    wet signal and the new window written once."""
+    for lanes, min_ms, path in DELAY_SHAPES:
+        args, b, w = delay_operands(dev, lanes, min_ms)
+        fn = functools.partial(delayline.feedback_loop_kernel, *args)
+        res = compare(f"delay G={lanes} n={BLOCK} b={b} W={w}",
+                      lambda: delay_outputs(fn()),
+                      lambda: delay_outputs(
+                          delayline.feedback_loop_plain(*args)),
+                      DB90, relative=True, reps=(20, 2))
+        moved = 4 * lanes * (2 * BLOCK + 9 * BLOCK + 2 * w + 2 * BLOCK + 2 * w)
+        record("delay", path, res, moved, DELAY_OPS * 2 * lanes * BLOCK, fn,
+               f"G={lanes} n={BLOCK} b={b} W={w}", timed=path is None)
 
 
 def plain_outputs(name, want):
@@ -1772,29 +1857,6 @@ def player_phase(dev):
     return launches, player
 
 
-def roll_cost(prog, dev, reps=200):
-    """Log the host and device time of one roll of the delay's window
-    (``chrono.roll``) at the shapes the render gives it."""
-    delay = next(n for n in prog.nodes.values() if isinstance(n, DelayEffect))
-    win = delay.init_state(prog.ctx)["line"].hist[None]
-    writes = torch.ones(win.shape[:-1] + (delay._subblock(prog.ctx),),
-                        device=dev)
-    chrono.roll(win, writes)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(reps):
-        win = chrono.roll(win, writes)
-    end.record()
-    host_us = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
-    log(f"  delay window roll {list(win.shape)} <- {list(writes.shape)}: "
-        f"device {start.elapsed_time(end) / reps * 1e3:.1f} us, host "
-        f"{host_us:.1f} us per call")
-
-
 def kernel_times(calls, reps=20):
     """Each recorded call's kernel-only time (``kernel_time``) and share of
     its bound, logged and kept with its numbers."""
@@ -1808,9 +1870,10 @@ def kernel_times(calls, reps=20):
 
 def kernel_report(measured, off_path, paths):
     """The kernels JSON object.  Top-level numbers are the mastering
-    chain's, the path that runs all six kernels: its launches and each
-    kernel's numbers at its shape; ``by_path`` holds each path's and
-    ``off_path`` those of the shapes timed off the paths."""
+    chain's (iir2's and iir1's the headline's: the mastering chain runs
+    neither): its launches and each kernel's numbers at its shape;
+    ``by_path`` holds each path's and ``off_path`` those of the shapes
+    timed off the paths."""
     report = {"kernels": []}
     for name in COUNTERS:
         by_path = measured[name]
@@ -1822,7 +1885,8 @@ def kernel_report(measured, off_path, paths):
             # the mastering chain's dynamics and the headline's iir1 run
             # at their unsharded shapes
             by_path["graph_sharded"] = dict(
-                by_path["headline" if name == "iir1" else "mastering"])
+                by_path["headline" if name in ("iir1", "iir2")
+                        else "mastering"])
         for key, nums in by_path.items():
             # a path's second shape ("synth_64v/filter") shares its launches
             launches = paths.get(key.split("/")[0])
@@ -1831,11 +1895,13 @@ def kernel_report(measured, off_path, paths):
         report["kernels"].append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
-            **{k: by_path["mastering"][k] for k in (
+            **{k: by_path["mastering" if "mastering" in by_path
+                          else "headline"][k] for k in (
                 "launches", "max_abs_err", "ms", "kernel_ms", "plain_ms",
                 "bound_ms", "bound_by")},
             # no single PyTorch call computes any of these functions;
-            # "replaces" is None for the smoothers, which had no TPU kernel
+            # "replaces" is None for the smoothers and the delay, which had
+            # no TPU kernel
             "library_ms": None, "by_path": by_path,
             "off_path": off_path[name]})
     return report
@@ -1874,8 +1940,8 @@ def main():
     phase("4: mastering chain on the card")
     paths["mastering"], progs["mastering"] = render_path(
         "mastering", lambda d: mastering_program(block_frames=BLOCK, device=d),
-        dev, tuple(COUNTERS))
-    roll_cost(progs["mastering"], dev)
+        dev, ("ramp_read", "follower", "gate", "smooth", "delay"),
+        per_block={"delay": 1, "iir2": 0, "iir1": 0})
     phase("5: the 64-voice sampler on the card")
     paths["sampler"], progs["sampler"] = render_path(
         "sampler", lambda d: sampler_program(block_frames=BLOCK, device=d),

@@ -8,12 +8,12 @@ SVF filter -> tanh-approx saturation -> DC blocker -> clamp(+-4)
 filter cutoff (:340-380); equal-power-ish dry/wet law and mid/side stereo
 width on the output (:440-452); analytic tail from the feedback factor.
 
-The feedback loop is a host loop over sub-blocks of B samples (B chosen
-from the smallest reachable delay, so a sub-block never reads its own
-writes).  Each step reads the rolling window at fractional offsets
-(ops/chrono.py, a gather), runs the SVF and the DC blocker as recurrences
-over the sub-block (kernels 2 and 3 on CUDA), saturates, and rolls its
-writes into the window.  Runtime delay times are clamped to >= B+1
+The feedback loop, the only part that reads the fed-back line, is
+``ops/delayline.feedback_loop``: one launch of kernel 7 per block on CUDA,
+a loop over sub-blocks of B samples on the CPU (B chosen from the smallest
+reachable delay, so a sub-block never reads its own writes).  Everything
+else (the LFO, the delay times, the SVF coefficients, the output mix) is
+vectorised over the block here.  Runtime delay times are clamped to >= B+1
 samples; construct with a smaller ``min_delay_ms`` if automation needs
 shorter delays, and with a smaller ``max_delay_capacity_ms`` when
 automation never exceeds it (it sizes the window).
@@ -30,6 +30,7 @@ import torch
 
 from ..graph.nodes import BuildCtx, Effect
 from ..ops import chrono as chrono_ops, filters, lfo as lfo_ops, ring as ring_ops
+from ..ops.delayline import feedback_loop, saturate  # noqa: F401
 from ..ops.precision import recip32
 # format_degrees is a name of this module in the JAX package too
 from ..params import (  # noqa: F401
@@ -62,16 +63,6 @@ LFO_SHAPE = EnumParameter("lfos", "LFO Shape", lfo_ops.WAVEFORM_NAMES, "Sine")
 LFO_TIME = FloatParameter("lfdt", "LFO -> Time", -1.0, 1.0, 0.0, formatter=format_percent)
 LFO_FB = FloatParameter("ldfb", "LFO -> Feedback", -1.0, 1.0, 0.0, formatter=format_percent)
 LFO_FILTER = FloatParameter("lfdf", "LFO -> Filter", -1.0, 1.0, 0.0, formatter=format_percent)
-
-
-def saturate(x, drive):
-    """tanh-approx soft clip x(27+x^2)/(27+9x^2), gain-scaled by drive
-    (reference: delay.rs:69-79)."""
-    gain = 1.0 + drive * 4.0
-    xg = x * gain
-    x2 = xg * xg
-    out = xg * (27.0 + x2) / (27.0 + 9.0 * x2) / torch.sqrt(gain)
-    return torch.where(drive < 0.001, x, out)
 
 
 class DelayEffect(Effect):
@@ -214,35 +205,11 @@ class DelayEffect(Effect):
         coefs = filters.per_channel(filters.TptCoefficients(a1, a2, a3, *mix))
         dc_r = filters.dc_coefficient(sr, "default")
 
-        # feedback loop over sub-blocks (lax.scan in the JAX package); each
-        # step reads the window, then rolls its writes in
-        win, svf, dc, fb_state = (state["line"].hist, state["svf"], state["dc"],
-                                  state["fb"])
-        wets = []
-        for t0 in range(0, n, b):
-            sl = slice(t0, t0 + b)
-            fb_j = feedback[:, sl]
-            delayed = chrono_ops.read_frac_win(win, delay_samples[:, None, sl])
-            svf, filtered = filters.tpt_process(
-                svf, delayed, filters.TptCoefficients(*(c[..., sl] for c in coefs)),
-                dtype=dt)
-            saturated = saturate(filtered, drive[:, None, sl])
-            dc, blocked = filters.dc_process(dc, saturated, dc_r, dtype=dt)
-            clean = torch.clamp(blocked, -4.0, 4.0)  # [G, 2, B]
-
-            # previous-sample clean values (the feedback source)
-            prev = torch.cat([fb_state[..., None], clean[..., :-1]], dim=-1)
-            x_j = x[..., sl]
-            mono = (x_j[:, 0] + x_j[:, 1]) * 0.5
-            # stereo: own-channel feedback; pingpong: cross-channel
-            l_in = torch.where(is_pp, mono + prev[:, 1] * fb_j,
-                               x_j[:, 0] + prev[:, 0] * fb_j)
-            r_in = torch.where(is_pp, prev[:, 0] * fb_j,
-                               x_j[:, 1] + prev[:, 1] * fb_j)
-            win = chrono_ops.roll(win, torch.stack([l_in, r_in], dim=1))
-            fb_state = clean[..., -1]
-            wets.append(clean)
-        wet = torch.cat(wets, dim=-1).to(x.dtype)
+        # the feedback loop: the only part that reads the fed-back line
+        wet, win, svf, dc, fb_state = feedback_loop(
+            x, state["line"].hist, state["svf"], state["dc"], state["fb"],
+            delay_samples, feedback, drive, coefs, is_pp, dc_r, b, dt)
+        wet = wet.to(x.dtype)
 
         wet_mix = params[WET.id]
         dry_gain = torch.clamp((1.0 - wet_mix) * 2.0, max=1.0)

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "phonic_gate": ([_I] + [_P] * 9 + [_I, _L, _P], _I),
     "phonic_smooth": ([_I, _I, _I] + [_P] * 9 + [_I] * 4 + [_L, _I, _P, _P],
                       _I),
+    "phonic_delay": ([_I] + [_P] * 17 + [ctypes.c_float] + [_P] * 3
+                     + [_I] * 4 + [_P], _I),
     "phonic_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
