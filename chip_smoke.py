@@ -1323,13 +1323,13 @@ def headline_lane(k, device):
 
 def lowering_ms(lanes, shard, blocks):
     """Host ms per block to lower the lanes' inputs (each lane program's
-    ``block_inputs`` and the batched program's arrays of them), and one
-    lane's alone."""
+    ``block_inputs`` and the batched program's packed copy of them), and
+    one lane's alone."""
     def run(progs, prog):
         t0 = time.perf_counter()
         for b in blocks:
             ins = [p.block_inputs(b) for p in progs]
-            prog._host_arrays(ins if len(ins) > 1 else ins[0])
+            prog.pack_inputs(ins if len(ins) > 1 else ins[0])
         return (time.perf_counter() - t0) * 1e3 / len(blocks)
     return run(lanes, shard), run(lanes[:1], lanes[0])
 

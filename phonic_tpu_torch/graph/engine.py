@@ -47,21 +47,23 @@ shared by the lanes or given per lane:
 Either way a block makes the launches of one instance, each over L times
 the rows.
 
-A program's banks (file banks, pools, sibling chains) may also be split
-over several devices by ``parallel/mesh.GraphShardedProgram``: ``_step``
-takes the splits, renders each shard's rows on its device and gathers the
-outputs back to the program's device before any sum over rows.
+Every block reaches the device through :meth:`RenderProgram.pack_inputs`:
+the host arrays it needs travel in one buffer (pinned on a CUDA program),
+one asynchronous copy per block, and the step reads views of it, so nothing
+in the step waits for the stream.  ``step`` is ``step_packed`` over
+``pack_inputs``; the Player packs a block ahead of its step.
 
-The live path (the Player) steps with :meth:`RenderProgram.step_packed`:
-every host array a block needs travels in one pinned buffer, one
-asynchronous copy per block, and the step reads views of it, so nothing in
-the step waits for the stream.  ``step`` copies the same arrays one by one
-and gives the same numbers bit for bit.
+The walk calls each bank through one interface: a file bank's ``render``,
+a pool's ``voices`` and ``render``, and a chain's ``run`` (:func:`run_stages`
+over its effects).  ``parallel/mesh.GraphShardedProgram`` splits banks over
+several devices by stepping a copy of the program whose split banks and
+chains stand behind that same interface.
 """
 
 from __future__ import annotations
 
 import bisect
+import functools
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
@@ -208,6 +210,43 @@ class MixerLevels(dict):
         super().__init__((p, (stats[0, i], stats[1, i]))
                          for i, p in enumerate(paths))
         self.stats = stats
+
+
+def run_stages(effects, limits, ctx, x, states, age0, stage_params):
+    """A chain's effects (``effects``: one lane's, each run batched over the
+    chain's rows) over x [R, ch, n] from their ``states``; stage i's
+    parameters are ``stage_params(i)``.  Returns (states, silence ages or
+    None, output).  A program's chain runs it as ``chain["run"](x, states,
+    age0, stage_params)``.
+
+    Under auto-bypass (``age0`` [stages, R] and ``limits`` given) each
+    (stage, row) keeps a silence age: a stage whose input is silent and has
+    been for longer than its limit passes its input through and keeps its
+    state.  The stage still runs and selects per row (``torch.where``), so
+    no branch reads a device value on the host; for one lane this is the
+    JAX package's per-effect ``lax.cond``, for several its
+    ``run_chain_frozen``."""
+    n = ctx.block_frames
+    sts, ages = [], []
+    for i, e0 in enumerate(effects):
+        with tracing.span(e0.SPAN):
+            pvals = stage_params(i)
+            st0 = states[i]
+            if age0 is not None:
+                silent = torch.amax(torch.abs(x), dim=(1, 2)) <= SILENCE
+                skip = silent & (age0[i] >= limits[i])
+                st, y = e0.process(st0, x, pvals, ctx)
+                x = torch.where(skip[:, None, None], x, y)
+                st = tree_map(lambda a, b: torch.where(
+                    skip.view((-1,) + (1,) * (a.dim() - 1)), a, b),
+                    st0, st)
+                ages.append(torch.where(silent, age0[i] + n, 0))
+            else:
+                st, x = e0.process(st0, x, pvals, ctx)
+        sts.append(st)
+    if age0 is None:
+        return sts, None, x
+    return sts, torch.clamp(torch.stack(ages), max=AGE_MAX), x
 
 
 class RenderProgram:
@@ -379,8 +418,8 @@ class RenderProgram:
         mixer with effects is a chain of one lane.
 
         ``self.chains[cid]`` holds the lane mixers, their paths and effect
-        lists, and under auto-bypass each (stage, lane)'s silence limit
-        ([stages, L*G]);
+        lists, under auto-bypass each (stage, lane)'s silence limit
+        ([stages, L*G]), and its runner ``run`` (:func:`run_stages`);
         ``self._chain_of`` maps a mixer path to its chain and
         ``self._eff_loc`` an effect path to its (chain, stage, lane)."""
         self.chains: list[dict] = []
@@ -410,6 +449,8 @@ class RenderProgram:
                       for effs in effects] * self.lanes
                      for i in range(len(effects[0]))],
                     dtype=torch.int32, device=self.device)
+            chain["run"] = functools.partial(run_stages, effects[0],
+                                             chain.get("limits"), self.ctx)
             self.chains.append(chain)
             for p in paths:
                 self._chain_of[p] = cid
@@ -923,79 +964,22 @@ class RenderProgram:
         """Render one block: (state, inputs) -> (state, audio[ch, n]) on the
         program's device (``audio[lanes, ch, n]`` for a program built with
         ``lanes``); with ``meter_mixers`` the output is (audio,
-        :class:`MixerLevels`, its levels ``[lanes, ch]`` likewise).  Each
-        host array is copied to the device on its own; :meth:`step_packed`
-        copies them in one go and gives the same numbers."""
-        with tracing.span("engine.upload", self._block_index(inputs)):
-            arrays, host = self._host_arrays(inputs)
-            dev = {k: torch.as_tensor(a, device=self.device)
-                   for k, a in arrays.items()}
-        return self._step(state, inputs, host, dev)
+        :class:`MixerLevels`, its levels ``[lanes, ch]`` likewise).  The
+        block's arrays reach the device in one copy (:meth:`pack_inputs`)."""
+        return self.step_packed(state, self.pack_inputs(inputs))
 
     def step_packed(self, state, packed: PackedInputs):
-        """:meth:`step` over :meth:`pack_inputs`' packed inputs: the live
-        path's step, with no copy from the host and no wait for the stream
-        inside it."""
-        return self._step(state, packed.inputs, packed.host, packed.device)
+        """:meth:`step` over :meth:`pack_inputs`' packed inputs, with no copy
+        from the host and no wait for the stream inside it."""
+        with tracing.span("engine.step", self._block_index(packed.inputs)):
+            return self._walk(state, packed.inputs, packed.host,
+                              packed.device)
 
-    @staticmethod
-    def _run_stages(effects, x, states, age0, limits, stage_params, ctx):
-        """A chain's effects (``effects``: one lane's, each run batched over
-        the chain's rows) over x [R, ch, n] from their ``states``; stage
-        i's parameters are ``stage_params(i)``.  Returns (states, silence
-        ages or None, output).
-
-        Under auto-bypass (``age0`` [stages, R] and ``limits`` given) each
-        (stage, row) keeps a silence age: a stage whose input is silent and
-        has been for longer than its limit passes its input through and
-        keeps its state.  The stage still runs and selects per row
-        (``torch.where``), so no branch reads a device value on the host;
-        for one lane this is the JAX package's per-effect ``lax.cond``, for
-        several its ``run_chain_frozen``."""
-        n = ctx.block_frames
-        sts, ages = [], []
-        for i, e0 in enumerate(effects):
-            with tracing.span(e0.SPAN):
-                pvals = stage_params(i)
-                st0 = states[i]
-                if age0 is not None:
-                    silent = torch.amax(torch.abs(x), dim=(1, 2)) <= SILENCE
-                    skip = silent & (age0[i] >= limits[i])
-                    st, y = e0.process(st0, x, pvals, ctx)
-                    x = torch.where(skip[:, None, None], x, y)
-                    st = tree_map(lambda a, b: torch.where(
-                        skip.view((-1,) + (1,) * (a.dim() - 1)), a, b),
-                        st0, st)
-                    ages.append(torch.where(silent, age0[i] + n, 0))
-                else:
-                    st, x = e0.process(st0, x, pvals, ctx)
-            sts.append(st)
-        if age0 is None:
-            return sts, None, x
-        return sts, torch.clamp(torch.stack(ages), max=AGE_MAX), x
-
-    def _step(self, state, inputs, host, dev, split=None):
-        """The block step over the block's device arrays ``dev`` and host
-        values ``host`` (:meth:`_host_arrays`).
-
-        ``split``: the banks a ``GraphShardedProgram`` splits over its mesh
-        (parallel/mesh.py), ``{"file_batches" | "pools" | "chains": {index:
-        split}}``.  A split bank's state is a list of its shards' states,
-        its entries in ``dev`` and ``host`` lists of its shards' arrays,
-        each on its shard's device; its parameter rows and inputs go to each
-        shard as slices (``split.take``), and its outputs come back to the
-        program's device in row order (``split.run`` / ``split.gather``)
-        before anything sums over rows, so the result is the unsplit
-        program's bit for bit."""
-        with tracing.span("engine.step", self._block_index(inputs)):
-            return self._walk(state, inputs, host, dev, split)
-
-    def _walk(self, state, inputs, host, dev, split):
-        """:meth:`_step`'s body: the graph walked over one block."""
+    def _walk(self, state, inputs, host, dev):
+        """The graph walked over one block, from the block's device arrays
+        ``dev`` and host values ``host`` (:meth:`_host_arrays`)."""
         ctx = self.ctx
-        n = ctx.block_frames
         lanes = self.lanes
-        split = split or {}
         per = None if isinstance(inputs, dict) else list(inputs)
         # the banks take this one start frame as a host int, or their rows'
         # own as a device tensor where the lanes' differ (``b{i}.f0``,
@@ -1026,20 +1010,11 @@ class RenderProgram:
             names = [f"b{bi}.{k}" for k in ("stop", "kill", "seek_flag",
                                              "seek_pos")]
             f0 = dev.get(f"b{bi}.f0", frame0)
-            differ = per_lane(sel["SPED"][0])
-            sp = split.get("file_batches", {}).get(bi)
             with tracing.span("source.file_bank"):
-                if sp is None:
-                    nb_state, out = batch.render(
-                        state["file_batches"][bi], f0, *args,
-                        *(dev[k] for k in names), differ)
-                else:
-                    nb_state, out = sp.run(
-                        state["file_batches"][bi],
-                        lambda j, view, st: view.render(
-                            st, sp.pick(f0, j),
-                            *(sp.take(a, j) for a in args),
-                            *(dev[k][j] for k in names), differ))
+                nb_state, out = batch.render(
+                    state["file_batches"][bi], f0, *args,
+                    *(dev[k] for k in names),
+                    speeds_differ=per_lane(sel["SPED"][0]))
             new_batches.append(nb_state)
             out = out.view((lanes, len(batch.paths)) + out.shape[1:])
             for i, p in enumerate(batch.paths):
@@ -1048,24 +1023,11 @@ class RenderProgram:
         for pi, pool in enumerate(self.pools):
             params = {pid: rows(sel) for pid, sel in self._pool_rows[pi].items()}
             f0 = dev.get(f"q{pi}.f0", frame0)
-            sp = split.get("pools", {}).get(pi)
+            layout, smax, live = host[f"q{pi}"]
             with tracing.span("source.pool"):
-                if sp is None:
-                    layout, smax, live = host[f"q{pi}"]
-                    pool_state, out = pool.render(
-                        state["pools"][pi], params,
-                        pool.voices(dev.get(f"q{pi}"), layout), smax, live,
-                        f0)
-                else:
-                    def shard(j, view, st, pi=pi, params=params, f0=f0,
-                              sp=sp):
-                        layout, smax, live = host[f"q{pi}"][j]
-                        flat = dev.get(f"q{pi}")
-                        return view.render(
-                            st, {k: sp.take(v, j) for k, v in params.items()},
-                            view.voices(None if flat is None else flat[j],
-                                        layout), smax, live, sp.pick(f0, j))
-                    pool_state, out = sp.run(state["pools"][pi], shard)
+                pool_state, out = pool.render(
+                    state["pools"][pi], params,
+                    pool.voices(dev.get(f"q{pi}"), layout), smax, live, f0)
             new_pools.append(pool_state)
             out = out.view((lanes, len(pool.paths)) + out.shape[1:])
             for i, p in enumerate(pool.paths):
@@ -1078,8 +1040,7 @@ class RenderProgram:
 
         def run_chain(cid, x):
             """Apply chain ``cid`` to x [L*G, ch, n]: effect i of every lane
-            runs as one batched call (each shard's lanes, on a split
-            chain)."""
+            runs as one batched call."""
             c = self.chains[cid]
 
             def stage_params(i):
@@ -1090,27 +1051,10 @@ class RenderProgram:
                     pvals[k] = np.stack([d.get(k, 0) for d in dicts])
                 return pvals
 
-            sp = split.get("chains", {}).get(cid)
-            if sp is None:
-                new_chains[cid], new_ages[cid], x = self._run_stages(
-                    c["effects"][0], x, state["chains"][cid],
-                    state["bypass"][cid] if bypass else None,
-                    c.get("limits"), stage_params, ctx)
-                return x
-            pv = [stage_params(i) for i in range(len(c["effects"][0]))]
-            sts, ages, outs = [], [], []
-            for j, view in enumerate(sp.views):
-                st, age, y = self._run_stages(
-                    c["effects"][0], sp.take(x, j), state["chains"][cid][j],
-                    state["bypass"][cid][j] if bypass else None,
-                    view.get("limits"),
-                    lambda i, j=j: {k: sp.take(v, j) for k, v in pv[i].items()},
-                    view["ctx"])
-                sts.append(st)
-                ages.append(age)
-                outs.append(y)
-            new_chains[cid], new_ages[cid] = sts, ages
-            return sp.gather(outs)
+            new_chains[cid], new_ages[cid], x = c["run"](
+                x, state["chains"][cid],
+                state["bypass"][cid] if bypass else None, stage_params)
+            return x
 
         def render_pre(m: _FrozenMixer, me: str):
             """Children and sources summed, BEFORE m's own effect chain:

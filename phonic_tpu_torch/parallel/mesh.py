@@ -15,7 +15,7 @@ package, whose step vmaps over ``[lanes, ...]`` inputs:
 
 * :meth:`BatchedRenderProgram.block_inputs` gives one lane's inputs,
   shared by every lane (the JAX package tiles them): a block lowers and
-  copies them once per device;
+  packs them once per device;
 * for lanes that differ (stems, variations with their own automation,
   notes, stops and seeks, or blocks that start at other frames), a caller
   builds one program per lane from a structurally equal graph (the same
@@ -33,8 +33,8 @@ stack such lanes.
 
 The JAX package chooses between packed and plain inputs by lane count,
 a trade of transfer latency against unpack cost on the TPU; the port
-always copies the block's arrays as its single programs do, so that
-choice has no counterpart.
+always packs the block's arrays into one copy, as its single programs do
+(``RenderProgram.pack_inputs``), so that choice has no counterpart.
 
 A mesh is a list of torch devices (:func:`data_mesh`); entries may repeat.
 A mesh of k devices splits the lanes into k contiguous shards, each a
@@ -48,23 +48,28 @@ divides renders as k contiguous groups of its members, each on its device
 with its own kernel launches; everything else (smoothers, scalar node
 state, mixers, metering, the master chain) runs on the first device, where
 the shards' outputs are gathered in row order before any sum over rows, so
-the audio is the unsharded program's bit for bit.  A 2D mesh (a list of
-rows) given to ``BatchedRenderProgram`` makes each row a lane shard whose
-banks split over the row's devices: the JAX package's lanes x graph
-layout.
+the audio is the unsharded program's bit for bit.  The engine knows
+nothing of this: a split bank or chain stands behind the interface the
+program's walk calls (a file bank's ``render``, a pool's ``voices`` and
+``render``, a chain's ``run``), and the sharded program steps a copy of
+the program that holds them.  A block packs once, on the first device
+(``RenderProgram.pack_inputs``); each split bank takes its shards' rows
+from there on the device.  A 2D mesh (a list of rows) given to
+``BatchedRenderProgram`` makes each row a lane shard whose banks split
+over the row's devices: the JAX package's lanes x graph layout.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from .. import tracing
 from ..config import resolve_device
 from ..graph.batching import member_rows
-from ..graph.engine import RenderProgram, tree_map
+from ..graph.engine import RenderProgram, run_stages, tree_map
 
 Device = Union[str, torch.device]
 
@@ -109,8 +114,7 @@ class BankSplit:
     """One bank of a program (a file bank, a pool or a sibling chain of G
     members and L instances, rows lane-major) split into k contiguous
     groups of its members, group j on ``devices[j]``: JAX's ``P("graph")``
-    over the bank's member axis.  ``views[j]`` renders group j (a bank's
-    :meth:`shard`; for a chain, its silence limits and context)."""
+    over the bank's member axis."""
 
     def __init__(self, size: int, lanes: int, devices: list, home):
         self.devices = devices
@@ -124,16 +128,13 @@ class BankSplit:
         self.rows = [member_rows(m, size, lanes) for m in self.members]
         self._sel = [slice(int(r[0]), int(r[-1]) + 1) if lanes == 1 else
                      torch.as_tensor(r, device=home) for r in self.rows]
-        self.views: list = []
-
-    @staticmethod
-    def pick(x, j: int):
-        """Shard j's entry of a per-shard list; anything else is shared."""
-        return x[j] if isinstance(x, list) else x
 
     def take(self, x, j: int, dim: int = 0):
         """Shard j's rows of ``x`` (along ``dim``): a tensor on the home
-        device comes to shard j's device, a host array stays on the host."""
+        device comes to shard j's device, a host array stays on the host,
+        and a host int (a block's one start frame) is every shard's."""
+        if isinstance(x, int):
+            return x
         if isinstance(x, np.ndarray):
             return np.take(x, self.rows[j], axis=dim)
         sel = self._sel[j]
@@ -151,15 +152,106 @@ class BankSplit:
         parts = [o.unflatten(dim, (self.lanes, -1)) for o in outs]
         return torch.cat(parts, dim=dim + 1).flatten(dim, dim + 1)
 
-    def run(self, states: list, fn):
-        """``fn(j, views[j], states[j]) -> (state, out)`` on every shard:
-        (the shards' states, their outputs gathered)."""
-        sts, outs = [], []
-        for j, view in enumerate(self.views):
-            st, out = fn(j, view, states[j])
-            sts.append(st)
-            outs.append(out)
-        return sts, self.gather(outs)
+    def run(self, fn):
+        """``fn(j) -> (*states, out)`` on every shard j: each of the states
+        as a list of the shards', and the outputs gathered."""
+        *states, outs = zip(*(fn(j) for j in range(len(self.devices))))
+        return (*map(list, states), self.gather(list(outs)))
+
+
+class _ShardedBank:
+    """A file bank or pool split over a mesh, behind the bank's own
+    interface: its state is a list of its shards' states; shard j renders
+    ``views[j]`` (the bank's :meth:`shard` of its members) on
+    ``split.devices[j]`` from its rows of the whole bank's inputs
+    (``split.take``), and the outputs come back to the home device in row
+    order (``split.gather``)."""
+
+    def __init__(self, bank, split: BankSplit):
+        self.paths = bank.paths
+        self.split = split
+        self.views = [bank.shard(m, d)
+                      for m, d in zip(split.members, split.devices)]
+
+
+class _ShardedFileBank(_ShardedBank):
+    def render(self, states, frame0, *rows, speeds_differ=False):
+        take = self.split.take
+        return self.split.run(lambda j: self.views[j].render(
+            states[j], take(frame0, j), *(take(a, j) for a in rows),
+            speeds_differ=speeds_differ))
+
+
+class _ShardedPool(_ShardedBank):
+    """The pool's lowered arrays reach each shard as its rows of the
+    block's packed flat array (``LeafBatch.stack``), with the whole pool's
+    step bound and live segments."""
+
+    def __init__(self, pool, split: BankSplit):
+        super().__init__(pool, split)
+        self.stack = pool.stack
+        self._layout = self._index = None
+
+    def _flat_rows(self, layout, j: int):
+        """Shard j's index into a flat array of ``layout``, on the home
+        device, and the layout of what it selects: each array's rows are
+        one instance's members ([G, ...], shared inputs of a lane-batched
+        program) or every instance's ([L*G, ...])."""
+        sp = self.split
+        idx, out, off = [np.zeros(0, np.int64)], [], 0
+        for k, shape, is_float in layout:
+            count = int(np.prod(shape))
+            rows = np.asarray(sp.members[j] if shape[0] == len(self.paths)
+                              and sp.lanes > 1 else sp.rows[j])
+            per = count // shape[0]
+            idx.append(off + (rows[:, None] * per
+                              + np.arange(per)).reshape(-1))
+            out.append((k, (len(rows),) + tuple(shape[1:]), is_float))
+            off += count
+        return torch.as_tensor(np.concatenate(idx), device=sp.home), tuple(out)
+
+    def voices(self, flat, layout) -> list:
+        """Each shard's lowered arrays on its device: one ``index_select``
+        of ``flat`` each, by an index worked out once per layout."""
+        if layout != self._layout:
+            self._layout = layout
+            self._index = [self._flat_rows(layout, j)
+                           for j in range(len(self.views))]
+        return [view.voices(None if flat is None else
+                            flat.index_select(0, idx).to(d), lay)
+                for view, (idx, lay), d in zip(self.views, self._index,
+                                               self.split.devices)]
+
+    def render(self, states, params, voices: list, smax, live, frame0):
+        take = self.split.take
+        return self.split.run(lambda j: self.views[j].render(
+            states[j], {k: take(v, j) for k, v in params.items()}, voices[j],
+            smax, live, take(frame0, j)))
+
+
+class _ShardedChain:
+    """A sibling chain split over a mesh, as the chain's ``run``
+    (``run_stages``): shard j runs the chain's effects over its rows on
+    ``split.devices[j]``, from its stage states and silence ages, with its
+    rows' parameters and silence limits; the output comes back to the home
+    device in row order."""
+
+    def __init__(self, chain: dict, split: BankSplit, ctx):
+        self.effects = chain["effects"][0]
+        self.split = split
+        limits = chain.get("limits")
+        self.views = [(None if limits is None
+                       else split.take(limits, j, dim=1),
+                       ctx._replace(device=d))
+                      for j, d in enumerate(split.devices)]
+
+    def __call__(self, x, states: list, ages, stage_params):
+        take = self.split.take
+        pv = [stage_params(i) for i in range(len(self.effects))]
+        return self.split.run(lambda j: run_stages(
+            self.effects, *self.views[j], take(x, j), states[j],
+            None if ages is None else ages[j],
+            lambda i: {k: take(v, j) for k, v in pv[i].items()}))
 
 
 def _splits(program: RenderProgram, devices: list) -> dict:
@@ -204,25 +296,6 @@ def _place(state, splits: dict, move):
     return out
 
 
-def _pool_rows(flat, layout, sp: BankSplit, j: int):
-    """Shard j's rows of a pool's flat lowered array (LeafBatch.stack) and
-    their layout: each array's rows are one instance's members ([G, ...],
-    shared inputs of a lane-batched program) or every instance's ([L*G,
-    ...])."""
-    size = sum(len(m) for m in sp.members)
-    parts, out, off = [], [], 0
-    for k, shape, is_float in layout:
-        count = int(np.prod(shape))
-        rows = (sp.members[j] if shape[0] == size and sp.lanes > 1
-                else sp.rows[j])
-        if flat is not None:
-            a = flat[off:off + count].reshape(shape)
-            parts.append(np.ascontiguousarray(a[rows]).reshape(-1))
-        out.append((k, (len(rows),) + tuple(shape[1:]), is_float))
-        off += count
-    return (np.concatenate(parts) if parts else None), tuple(out)
-
-
 def graph_state_shardings(program: RenderProgram, mesh,
                           axis: str = "graph",
                           lane_axis: Optional[str] = None):
@@ -256,14 +329,15 @@ class GraphShardedProgram:
     its members, group j on ``mesh[j]`` with its own launches there; the
     rest (smoothers, scalar node state, mixers, metering, the master
     chain, and any bank the mesh does not divide) runs on ``mesh[0]``, the
-    program's device.  Each block's inputs reach every shard's device
-    sliced to its rows; the shards' outputs return to ``mesh[0]`` in row
-    order before any sum over rows, so the audio is the unsharded
-    program's bit for bit.  Entries may repeat (two shards on one card)
-    or name the CPU (a placement check).  The program may be lane-batched
-    (``RenderProgram(lanes=L)``): each shard then holds its members of
-    every instance.  ``axis`` names the mesh axis, as in the JAX package;
-    a port mesh has only that one."""
+    program's device.  A block packs once on ``mesh[0]``
+    (``RenderProgram.pack_inputs``), and each split bank takes its shards'
+    rows from there to their devices; the shards' outputs return to
+    ``mesh[0]`` in row order before any sum over rows, so the audio is the
+    unsharded program's bit for bit.  Entries may repeat (two shards on
+    one card) or name the CPU (a placement check).  The program may be
+    lane-batched (``RenderProgram(lanes=L)``): each shard then holds its
+    members of every instance.  ``axis`` names the mesh axis, as in the
+    JAX package; a port mesh has only that one."""
 
     def __init__(self, program: RenderProgram, mesh: Sequence[Device],
                  axis: str = "graph"):
@@ -275,17 +349,18 @@ class GraphShardedProgram:
         self.mesh = devices
         self.lanes = program.lanes
         self._splits = _splits(program, devices)
-        banks = {"file_batches": program.file_batches, "pools": program.pools}
-        for kind, bank in banks.items():
-            for i, sp in self._splits[kind].items():
-                sp.views = [bank[i].shard(m, d)
-                            for m, d in zip(sp.members, sp.devices)]
-        for cid, sp in self._splits["chains"].items():
-            limits = program.chains[cid].get("limits")
-            sp.views = [{"ctx": program.ctx._replace(device=d),
-                         "limits": None if limits is None
-                         else sp.take(limits, j, dim=1)}
-                        for j, d in enumerate(sp.devices)]
+        fb, pl, ch = (self._splits[k]
+                      for k in ("file_batches", "pools", "chains"))
+        # the program the blocks step: a copy whose split banks and chains
+        # stand behind the interface the walk calls
+        self._split_program = split = copy.copy(program)
+        split.file_batches = [_ShardedFileBank(b, fb[i]) if i in fb else b
+                              for i, b in enumerate(program.file_batches)]
+        split.pools = [_ShardedPool(p, pl[i]) if i in pl else p
+                       for i, p in enumerate(program.pools)]
+        split.chains = [dict(c, run=_ShardedChain(c, ch[i], program.ctx))
+                        if i in ch else c
+                        for i, c in enumerate(program.chains)]
 
     def shard_state(self, state):
         """An unsharded state of the program (``init_state``, or one carried
@@ -315,43 +390,12 @@ class GraphShardedProgram:
     def block_inputs(self, block_index: int):
         return self.program.block_inputs(block_index)
 
-    def _device_arrays(self, arrays: dict, host: dict) -> dict:
-        """The block's host arrays on the devices that read them: a split
-        bank's (``b{i}.*``, ``q{i}``, ``q{i}.f0``) as each shard's rows,
-        copied to its device from the host; the rest on ``mesh[0]``.  A
-        split pool's host values become a list of each shard's: its
-        layout, and the whole pool's step bound and live segments."""
-        dev = {}
-        for name, a in arrays.items():
-            bank = name.split(".")[0]
-            kind = {"b": "file_batches", "q": "pools"}.get(bank[0])
-            sp = None if kind is None else self._splits[kind].get(int(bank[1:]))
-            if sp is None:
-                dev[name] = torch.as_tensor(a, device=self.mesh[0])
-            elif name != bank:  # one entry per row: b{i}.*, q{i}.f0
-                dev[name] = [torch.as_tensor(np.ascontiguousarray(
-                    a[sp.rows[j]]), device=d) for j, d in enumerate(sp.devices)]
-        for pi, sp in self._splits["pools"].items():
-            layout, smax, live = host[f"q{pi}"]
-            flat = arrays.get(f"q{pi}")
-            parts = [_pool_rows(flat, layout, sp, j)
-                     for j in range(len(sp.devices))]
-            if flat is not None:
-                dev[f"q{pi}"] = [torch.as_tensor(f, device=d) for (f, _), d
-                                 in zip(parts, sp.devices)]
-            host[f"q{pi}"] = [(lay, smax, live) for _, lay in parts]
-        return dev
-
     def step(self, state, inputs):
         """(state, inputs) -> (state, audio) as the program's ``step``, the
         audio on ``mesh[0]``; ``state`` from :meth:`init_state` or
         :meth:`shard_state`; ``inputs`` shared or per lane, as the
         program takes them."""
-        with tracing.span("engine.upload",
-                          self.program._block_index(inputs)):
-            arrays, host = self.program._host_arrays(inputs)
-            dev = self._device_arrays(arrays, host)
-        return self.program._step(state, inputs, host, dev, self._splits)
+        return self._split_program.step(state, inputs)
 
 
 class BatchedRenderProgram:
@@ -394,7 +438,7 @@ class BatchedRenderProgram:
 
     def block_inputs(self, block_index: int):
         """The block's inputs, shared by every lane: one lane's lowering
-        (the JAX package tiles it over the lanes; here each shard copies it
+        (the JAX package tiles it over the lanes; here each shard packs it
         to its device once)."""
         return self.program.block_inputs(block_index)
 

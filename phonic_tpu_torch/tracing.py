@@ -125,7 +125,9 @@ def _open_stack() -> list:
 
 class _Span:
     """An open span: :meth:`begin` and :meth:`finish` each read the clock
-    once and return what they read."""
+    once and return what they read.  Under a profiler both reads fall
+    inside the span's range, so the range's own setup (the first range of
+    a session takes tens of microseconds to open) is in neither's gap."""
 
     __slots__ = ("name", "block", "index", "gen", "rf")
 
@@ -134,6 +136,11 @@ class _Span:
         self.block = block
 
     def begin(self) -> int:
+        self.rf = None
+        if _profiler._is_profiler_enabled:
+            self.rf = torch._C._profiler._RecordFunctionFast(
+                "phonic." + self.name)
+            self.rf.__enter__()
         stack = _open_stack()
         with _lock:
             self.gen = _gen
@@ -150,17 +157,12 @@ class _Span:
                 _counts["tracing.dropped"] = \
                     _counts.get("tracing.dropped", 0) + 1
         stack.append(self.index)
-        self.rf = None
-        if _profiler._is_profiler_enabled:
-            self.rf = torch._C._profiler._RecordFunctionFast(
-                "phonic." + self.name)
-            self.rf.__enter__()
         return t0
 
     def finish(self) -> int:
+        t1 = now()
         if self.rf is not None:
             self.rf.__exit__(None, None, None)
-        t1 = now()
         with _lock:
             if self.gen == _gen:
                 _open_stack().pop()

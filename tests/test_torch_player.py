@@ -21,6 +21,7 @@ block 6 a third sub-mixer with the same chain joins the batched chain.
 * Checkpoints round-trip, and a mismatched one raises.
 """
 
+import collections
 import importlib
 import time
 
@@ -40,6 +41,8 @@ from phonic_tpu_torch.errors import CheckpointError
 from phonic_tpu_torch.generators.base import Generator, GeneratorPlaybackOptions
 from phonic_tpu_torch.graph.engine import AGE_MAX
 from phonic_tpu_torch.outputs.null import NullOutput
+from phonic_tpu_torch.parallel.mesh import (BatchedRenderProgram,
+                                            GraphShardedProgram)
 from phonic_tpu_torch import synths
 from phonic_tpu_torch.io.wav import write_wav
 from phonic_tpu_torch.player import PlaybackHandle, Player, PlayerConfig
@@ -405,6 +408,50 @@ def test_step_packed_copies_nothing_from_the_host(monkeypatch, make, tmp_path):
         monkeypatch.setattr(torch, name, spy)
     prog.step_packed(state, packed)
     assert made == []
+
+
+def _one_program():
+    prog = _small_program()[0]
+    return prog, prog.block_inputs
+
+
+def _lane_batched():
+    """Four lanes of the small graph on a two-entry CPU mesh, each lane's
+    inputs lowered by its own program: (program, per-block inputs)."""
+    lanes = [_small_program()[0] for _ in range(4)]
+    prog = BatchedRenderProgram(_small_program()[0], lanes=4,
+                                mesh=["cpu", "cpu"])
+    return prog, lambda b: [p.block_inputs(b) for p in lanes]
+
+
+def _graph_sharded():
+    """The small graph's file bank and sibling chain split over a
+    two-entry CPU mesh."""
+    prog = GraphShardedProgram(_small_program()[0], ["cpu", "cpu"])
+    return prog, prog.block_inputs
+
+
+@pytest.mark.parametrize("make,programs", [
+    (_one_program, 1), (_lane_batched, 2), (_graph_sharded, 1)],
+    ids=["step", "lane_batched", "graph_sharded"])
+def test_every_step_packs_once(monkeypatch, make, programs):
+    """Every block reaches the device through one ``pack_inputs`` per
+    program that steps it: a plain ``step``, each lane shard of a
+    ``BatchedRenderProgram`` over per-lane inputs, and the one program a
+    ``GraphShardedProgram`` steps."""
+    prog, inputs = make()
+    state = (prog.init_states() if isinstance(prog, BatchedRenderProgram)
+             else prog.init_state())
+    calls = []
+    real = RenderProgram.pack_inputs
+
+    def spy(self, x):
+        calls.append(id(self))
+        return real(self, x)
+    monkeypatch.setattr(RenderProgram, "pack_inputs", spy)
+    for b in range(3):
+        state, _ = prog.step(state, inputs(b))
+    assert sorted(collections.Counter(calls).values()) == [3] * programs
 
 
 class _Capture(NullOutput):
