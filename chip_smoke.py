@@ -161,9 +161,9 @@ phase fails.  Phases:
    step of its split program on ``[cuda:0, cuda:0]``;
    each kernel's kernel-only device time (the profiler's events of its own
    launches, and their number per call) and its share of its bound, at
-   each path's shape (``batched_headline``: B=128, R=64, R=16;
-   ``graph_sharded``: a shard's B=8 and R=4, the master chains' shapes
-   otherwise) and at the
+   each path's shape (``batched_headline``: B=128, R=64, R=16, 8 reverbs
+   and 32 choruses; ``graph_sharded``: a shard's B=8, R=4 and 2 choruses,
+   the master chains' shapes otherwise) and at the
    byte-bound shapes off the paths (iir2 and iir1 at R=40, the delay at 8
    lanes with b = 8192 and b = 1024); and the
    headline graph's rate once more, after the profiler.
@@ -199,7 +199,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from phonic_tpu_torch import kernels, tracing
+from phonic_tpu_torch.effects import chorus as chorus_fx
 from phonic_tpu_torch.effects import delay as delay_fx
+from phonic_tpu_torch.effects import reverb as reverb_fx
 from phonic_tpu_torch.generators.granular import source_table
 from phonic_tpu_torch.granular1k import granular_program
 from phonic_tpu_torch.headline import mixer_graph_program, tone
@@ -207,7 +209,8 @@ from phonic_tpu_torch.io import wav as wav_io
 from phonic_tpu_torch.io.decoder import AudioFileBuffer
 from phonic_tpu_torch.mastering import mastering_program
 from phonic_tpu_torch.ops import (
-    delayline, follower, rampread, resample, scan, smoothing,
+    chorusline, delayline, follower, rampread, resample, reverbnet, scan,
+    smoothing,
 )
 from phonic_tpu_torch.play_file import (
     BLOCK_FRAMES as PLAY_BLOCK, file_program, play_file_program, render_file,
@@ -261,7 +264,7 @@ OPS_PER_SAMPLE = {"follower": 5, "gate": 15}
 # launch counters: kernel -> its counter in phonic_tpu_torch.tracing
 COUNTERS = {k: f"kernel.{k}" for k in
             ("ramp_read", "iir2", "iir1", "follower", "gate", "smooth",
-             "delay")}
+             "delay", "reverb", "chorus")}
 # the kernels whose machine code phase 1 summarises
 SASS_KERNELS = ("gate_kernel", "iir2_kernel", "iir1_kernel", "ramp_read_kernel")
 SOURCES = {"ramp_read": ("phonic_tpu_torch/csrc/rampread.cu",
@@ -276,8 +279,11 @@ SOURCES = {"ramp_read": ("phonic_tpu_torch/csrc/rampread.cu",
                     "phonic_tpu/ops/follower.py:140"),
            # the JAX package's smoothers are plain jnp: no TPU kernel
            "smooth": ("phonic_tpu_torch/csrc/smooth.cu", None),
-           # the JAX package's delay loop is a lax.scan of jnp operations
-           "delay": ("phonic_tpu_torch/csrc/delay.cu", None)}
+           # the JAX package's delay, reverb and chorus loops are lax.scans
+           # of jnp operations
+           "delay": ("phonic_tpu_torch/csrc/delay.cu", None),
+           "reverb": ("phonic_tpu_torch/csrc/reverb.cu", None),
+           "chorus": ("phonic_tpu_torch/csrc/chorus.cu", None)}
 
 
 def log(*args):
@@ -538,6 +544,7 @@ def check_kernels(dev):
     check_dynamics(dev, rng, record)
     check_smoothers(dev, rng, record)
     check_delay(dev, record)
+    check_effect_lines(dev, record)
     return results, off_path, calls
 
 
@@ -845,6 +852,88 @@ def check_delay(dev, record):
         moved = 4 * lanes * (2 * BLOCK + 9 * BLOCK + 2 * w + 2 * BLOCK + 2 * w)
         record("delay", path, res, moved, DELAY_OPS * 2 * lanes * BLOCK, fn,
                f"G={lanes} n={BLOCK} b={b} W={w}", timed=path is None)
+
+
+# kernels 8 and 9's shapes: (kernel, lanes, frames, path): the Player's
+# master reverb and its 4 sub-mixers' choruses at its block and the
+# headline's, the batched headline's LANES of each, the split headline's
+# 2 choruses a shard (its master reverb runs unsplit), and 8 lanes
+LINE_SHAPES = (("reverb", 1, PLAYER_BLOCK, "player"),
+               ("reverb", 1, BLOCK, "headline"),
+               ("reverb", LANES, BLOCK, "batched_headline"),
+               ("reverb", LANES, PLAYER_BLOCK, None),
+               ("chorus", 4, PLAYER_BLOCK, "player"),
+               ("chorus", 4, BLOCK, "headline"),
+               ("chorus", 4 * LANES, BLOCK, "batched_headline"),
+               ("chorus", 2, BLOCK, "graph_sharded"),
+               ("chorus", LANES, PLAYER_BLOCK, None))
+# float32 operations per channel and sample (a float64 sine counted as one):
+# the reverb's allpasses (16), 8 lines' vibrato read, mix, feedback and
+# write (8 x 19) and the sums over the lines (11); the chorus's read (6)
+# and the line's input (2)
+LINE_OPS = {"reverb": 179, "chorus": 8}
+
+
+def line_operands(dev, kind, lanes, n):
+    """Arguments of the effect's plain network (reverb) or line (chorus)
+    at its second block for ``lanes`` instances at the Player's settings,
+    over tones; the first block rendered by the plain version too."""
+    ctx = BuildCtx(SR, 2, n, 16, torch.float32, dev)
+    if kind == "reverb":
+        fx = reverb_fx.ReverbEffect(room_size=0.6, wet=0.2, min_room_size=0.55)
+        mod, name, plain = reverb_fx, "network", reverbnet.network_plain
+    else:
+        fx = chorus_fx.ChorusEffect()
+        mod, name, plain = chorus_fx, "line", chorusline.line_plain
+    params = {k: torch.full((lanes, n), float(v), device=dev)
+              for k, v in fx.param_initials().items()}
+    params["_reset"] = np.zeros(lanes, np.float32)
+    t = torch.arange(2 * n, device=dev, dtype=torch.float64) / SR
+    hz = 110.0 * (1.0 + torch.arange(2 * lanes, device=dev)).reshape(lanes, 2, 1)
+    tones = (0.4 * torch.sin(2 * np.pi * hz * t)).float()
+    seen = []
+
+    def spy(*args):
+        seen.append(args)
+        return plain(*args)
+
+    state = stack_states([fx.init_state(ctx) for _ in range(lanes)])
+    routed = getattr(mod, name)
+    setattr(mod, name, spy)
+    try:
+        for k in range(2):
+            state, _ = fx.process(state, tones[..., k * n:(k + 1) * n]
+                                  .contiguous(), params, ctx)
+    finally:
+        setattr(mod, name, routed)
+    # the kernel's operands as its router hands them on
+    return tuple(a.contiguous() if isinstance(a, torch.Tensor) else a
+                 for a in seen[-1])
+
+
+def check_effect_lines(dev, record):
+    """Kernels 8 and 9 against their plain versions on the card at
+    :data:`LINE_SHAPES` (every output, -90 dB of its peak; the card tests
+    hold them bit for bit), timed with the plain versions beside them.  The
+    bytes: the streams and old windows read once, the wet signal and new
+    windows written once."""
+    for kind, lanes, n, path in LINE_SHAPES:
+        args = line_operands(dev, kind, lanes, n)
+        if kind == "reverb":
+            fn = functools.partial(reverbnet.network_kernel, *args[:9])
+            plain = functools.partial(reverbnet.network_plain, *args)
+            w = args[6].shape[-1] * 4 + args[7].shape[-1] * 8
+            per_ch = 3 * n + 2 * w
+        else:
+            fn = functools.partial(chorusline.line_kernel, *args)
+            plain = functools.partial(chorusline.line_plain, *args)
+            w = args[3].shape[-1]
+            per_ch = 3.5 * n + 2 * w
+        label = f"G={lanes} n={n} W={w}"
+        res = compare(f"{kind} {label}", fn, plain, DB90, relative=True,
+                      reps=(20, 2))
+        record(kind, path, res, 4 * 2 * lanes * per_ch,
+               LINE_OPS[kind] * 2 * lanes * n, fn, label, timed=path is None)
 
 
 def plain_outputs(name, want):
@@ -1882,10 +1971,10 @@ def kernel_report(measured, off_path, paths):
             by_path["divergent_headline"] = dict(by_path["batched_headline"])
         if "graph_sharded" not in by_path and "graph_sharded" in paths:
             # the split keeps the master chains whole on the first device:
-            # the mastering chain's dynamics and the headline's iir1 run
-            # at their unsharded shapes
+            # the mastering chain's dynamics and the headline's iir1 and
+            # reverb run at their unsharded shapes
             by_path["graph_sharded"] = dict(
-                by_path["headline" if name in ("iir1", "iir2")
+                by_path["headline" if name in ("iir1", "iir2", "reverb")
                         else "mastering"])
         for key, nums in by_path.items():
             # a path's second shape ("synth_64v/filter") shares its launches
@@ -1936,7 +2025,8 @@ def main():
     phase("3: headline graph on the card")
     paths["headline"], progs["headline"] = render_path(
         "headline", lambda d: mixer_graph_program(block_frames=BLOCK, device=d),
-        dev, ("ramp_read", "iir2", "iir1"), refs=refs)
+        dev, ("ramp_read", "iir2", "iir1"),
+        per_block={"reverb": 1, "chorus": 1}, refs=refs)
     phase("4: mastering chain on the card")
     paths["mastering"], progs["mastering"] = render_path(
         "mastering", lambda d: mastering_program(block_frames=BLOCK, device=d),

@@ -9,8 +9,9 @@ pre-filter on the input, dry/wet output mix (:311-385).  Modulation range is
 2 + delay + (1 + lfo) * depth_samples.
 
 The input SVF runs as one recurrence over the whole block (it is outside
-the feedback loop); the feedback loop is a host loop over sub-blocks whose
-body is a fractional window read and a window roll (ops/chrono.py).
+the feedback loop).  The feedback loop is ``ops/chorusline.line``: one
+launch of kernel 9 per block on CUDA, on the CPU a loop over sub-blocks
+whose body is a fractional window read and a window roll (ops/chrono.py).
 Runtime read positions are clamped to >= B+1 samples; construct with a
 smaller ``min_delay_ms`` for near-flanger settings.
 """
@@ -23,6 +24,7 @@ import torch
 
 from ..graph.nodes import BuildCtx, Effect
 from ..ops import chrono as chrono_ops, filters, lfo as lfo_ops, ring as ring_ops
+from ..ops.chorusline import line
 from ..ops.precision import recip32
 from ..params import (
     EnumParameter, ExponentialScaling, FloatParameter, format_degrees,
@@ -168,17 +170,9 @@ class ChorusEffect(Effect):
             for lfo in (lfo_l, lfo_r)], dim=1)  # [G, 2, n]
         feedback = torch.clamp(params[FEEDBACK.id], -0.999, 0.999)[:, None, :]
 
-        # feedback loop over sub-blocks (lax.scan in the JAX package): a
-        # sub-block shorter than the shortest delay never reads its own
-        # writes, so each step reads the window, then rolls its writes in
-        win = state["line"].hist
-        wets = []
-        for t0 in range(0, n, b):
-            d = chrono_ops.read_frac_win(win, pos[..., t0:t0 + b])  # [G, 2, B]
-            win = chrono_ops.roll(
-                win, filtered[..., t0:t0 + b] + d * feedback[..., t0:t0 + b])
-            wets.append(d)
-        wet = torch.cat(wets, dim=-1).to(x.dtype)
+        # the feedback line: the only part that reads the line
+        wet, win = line(pos, filtered, feedback, state["line"].hist, b)
+        wet = wet.to(x.dtype)
 
         wet_mix = params[WET.id][:, None, :]
         y = x * (1.0 - wet_mix) + wet * wet_mix

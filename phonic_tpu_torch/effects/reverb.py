@@ -9,9 +9,10 @@ Householder-like 4-groups -> mean -> lowpass B (Q 0.618) -> clamp -> asin()
 -> lowpass C (Q 0.5) -> + dry.  ROOM_SIZE maps to size = room^2*75+25,
 blend/regen/cutoff derive from it (:408-420).
 
-The three lowpasses run as whole-block recurrences; the four allpasses
-chain inside one host loop over sub-blocks (w[n] = x[n] - 0.5*w[n-d]); the
-8 FDN lines batch into a second loop over sub-blocks.  Every delay line is
+The three lowpasses run as whole-block recurrences.  The four allpasses
+(w[n] = x[n] - 0.5*w[n-d]) and the 8 FDN lines, the only part that reads
+the delay lines, are ``ops/reverbnet.network``: one launch of kernel 8 per
+block on CUDA, two loops over sub-blocks on the CPU.  Every delay line is
 a rolling window of its last H samples (newest last): a sub-block shorter
 than the smallest reachable delay never reads its own writes, so each step
 reads with one gather and appends its writes.  The fractional vibrato read
@@ -35,20 +36,20 @@ import torch
 from ..graph.nodes import BuildCtx, Effect
 from ..ops import consts, filters
 from ..ops import ring as ring_ops
+from ..ops.reverbnet import (  # noqa: F401
+    VIB_DEPTH, VIB_SPEED, network, vib_increments,
+)
 from ..params import FloatParameter, format_percent
 
 ROOM_SIZE = FloatParameter("room", "Room Size", 0.0, 1.0, 0.6,
                            formatter=format_percent, smoothing="linear")
 WET = FloatParameter("wet ", "Wet", 0.0, 1.0, 0.35, formatter=format_percent)
 
-# FDN line delay factors * size, and per-line vibrato depths (reverb.rs:105-151)
+# FDN line delay factors * size (reverb.rs:105-151; the vibrato's depths,
+# speed and depth in samples are in ops/reverbnet.py)
 _LINE_FACTORS = np.array([79.0, 73.0, 71.0, 67.0, 61.0, 59.0, 53.0, 47.0])
-_VIB_DEPTHS = np.array([0.003251, 0.002999, 0.002917, 0.002749,
-                        0.002503, 0.002423, 0.002146, 0.002088])
 _AP_FACTORS = np.array([43.0, 41.0, 37.0, 31.0])
 _PRE_FACTOR = 29.0
-VIB_SPEED = 0.1
-VIB_DEPTH = 7.0
 
 
 class ReverbEffect(Effect):
@@ -221,80 +222,12 @@ class ReverbEffect(Effect):
             state["bq_a"], delayed_in, filters.per_channel(coefs_a), dtype=dt)
         drive_in = torch.sin(filt_a * wet[:, None, :])
 
-        # ---- 4 cascaded allpasses in one loop over sub-blocks --------------
-        # Within a sub-block (< min allpass delay), stage a+1's sample j
-        # depends only on stage a's sample j and its own older history, so
-        # all four stages chain inside one step.  Window index of an
-        # absolute delay d is H - d; one gather reads all four stages.
-        h_ap = self._ap_buf
-        ap_idx = ((h_ap - ap_delay)[:, :, None, None]
-                  + torch.arange(b_ap, device=dev)).expand(lanes, 4, 2, b_ap)
-        buf4 = state["ap_buf"]  # [G, 4, 2, H]
-        outs = []
-        for t0 in range(0, n, b_ap):
-            sig = drive_in[..., t0:t0 + b_ap].to(dt)
-            delayed = torch.gather(buf4, -1, ap_idx)  # [G, 4, 2, B]
-            writes, stage_outs = [], []
-            for a in range(4):
-                w = sig - delayed[:, a] * 0.5
-                sig = w * 0.5 + delayed[:, a]
-                writes.append(w)
-                stage_outs.append(sig)
-            buf4 = torch.cat([buf4[..., b_ap:], torch.stack(writes, dim=1)],
-                             dim=-1)
-            outs.append(torch.stack(stage_outs, dim=1))
-        stages = torch.cat(outs, dim=-1)  # [G, 4, 2, n]
-        ap_i, ap_j, ap_k, ap_l = stages.unbind(1)
-
-        # FDN line inputs (reverb.rs:275-283): a/h <- allpass L, b/g <- K,
-        # c/f <- J, d/e <- I
-        line_in = torch.stack([ap_l, ap_k, ap_j, ap_i, ap_i, ap_j, ap_k, ap_l],
-                              dim=1)  # [G, 8, 2, n]
-
-        # ---- 8-line vibrato FDN in one loop over sub-blocks ----------------
-        # The read for output sample t is buf[t - delay + floor(offset)] with
-        # the fraction interpolating one sample newer; offset = (sin+1)*7
-        # lies in [0, 14].  Reads happen after the reference's step()
-        # (reverb.rs:284-301, 554-586): the vibrato phase is advanced once.
-        vib_inc = consts.const(_VIB_DEPTHS * VIB_SPEED, dt, dev)
-        vib_inc3 = vib_inc[:, None, None]
-        h_ln = self._line_buf
-        base_idx = (h_ln - line_delay)[:, :, None, None]  # [G, 8, 1, 1]
-        j = torch.arange(b_fdn, device=dev)
-        vib_base = state["vib_phase"][..., None]  # phase at block start
-        buf, fb = state["line_buf"], state["fb"]  # [G, 8, 2, H], [G, 8, 2]
-        wet_parts = []
-        for t0 in range(0, n, b_fdn):
-            vib = vib_base + vib_inc3 * (t0 + j).to(dt)  # [G, 8, 2, B]
-            # floor(offset) picks the tap, so the read jumps where the
-            # offset crosses an integer.  A float32 sine differs by an ulp
-            # or two between CPU and CUDA libraries, enough to pick another
-            # tap now and then; a float64 sine rounded to float32 is the
-            # same on both but with a vanishing probability, so CPU and
-            # CUDA renders pick the same taps
-            vib_sin = torch.sin((vib + vib_inc3).double()).to(dt)
-            offset = (vib_sin + 1.0) * VIB_DEPTH
-            off_floor = torch.floor(offset)
-            w_frac = offset - off_floor
-            gidx = base_idx + j + off_floor.to(torch.int64)
-            v1 = torch.gather(buf, -1, gidx)
-            v2 = torch.gather(buf, -1, gidx + 1)
-            bl = blend[:, None, None, t0:t0 + b_fdn]
-            interp = (1.0 - bl) * (v1 * (1.0 - w_frac) + v2 * w_frac) + v1 * bl
-
-            # cross-line feedback (Householder 4-groups), 1-sample lag
-            rg = regen[:, None, None, t0:t0 + b_fdn]
-            g1 = torch.sum(interp[:, :4], dim=1, keepdim=True)
-            g2 = torch.sum(interp[:, 4:], dim=1, keepdim=True)
-            gsum = torch.cat([g1.expand(-1, 4, -1, -1),
-                              g2.expand(-1, 4, -1, -1)], dim=1)
-            fb_now = (2.0 * interp - gsum) * rg  # [G, 8, 2, B]
-            fb_prev = torch.cat([fb[..., None], fb_now[..., :-1]], dim=-1)
-            writes = (line_in[..., t0:t0 + b_fdn] + fb_prev).to(dt)
-            buf = torch.cat([buf[..., b_fdn:], writes], dim=-1)
-            fb = fb_now[..., -1]
-            wet_parts.append(torch.mean(interp, dim=1))  # [G, 2, B]
-        wet_sig = torch.cat(wet_parts, dim=-1)
+        # ---- the allpass chain and the 8-line FDN: the only part that
+        # reads the delay lines (ops/reverbnet.py) ---------------------------
+        wet_sig, buf4, buf, fb = network(
+            drive_in, ap_delay, line_delay, blend, regen, state["vib_phase"],
+            state["ap_buf"], state["line_buf"], state["fb"], b_ap, b_fdn, dt)
+        vib_inc = vib_increments(dt, dev)
         # the vibrato phase advances by inc per sample across the block;
         # wrapped to [0, 2pi) (both operands >= 0, so fmod is the floor-mod)
         vib_phase = torch.fmod(

@@ -44,6 +44,8 @@ _SIGNATURES = {
                       _I),
     "phonic_delay": ([_I] + [_P] * 17 + [ctypes.c_float] + [_P] * 3
                      + [_I] * 4 + [_P], _I),
+    "phonic_reverb": ([_I] + [_P] * 14 + [_I] * 4 + [_P], _I),
+    "phonic_chorus": ([_I] + [_P] * 6 + [_I] * 4 + [_P], _I),
     "phonic_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -501,5 +501,6 @@ def test_launchers_restore_the_callers_device():
         guards = len(re.findall(r"DeviceGuard on\(device\);", text))
         assert guards >= 1 if launches else guards == 0, src.name
         launchers += guards
-    # ramp_read, the scans, the follower, the gate, the smoothers, the delay
-    assert launchers == 6
+    # ramp_read, the scans, the follower, the gate, the smoothers, the
+    # delay, the reverb, the chorus
+    assert launchers == 8
