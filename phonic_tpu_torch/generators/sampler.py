@@ -26,8 +26,9 @@ pool reads every voice of every sampler in one ``ramp_read``.
 Known deviation (as in the JAX package): AHDSR parameter changes re-shape
 the envelope of already sounding notes analytically.  Where a voice starts
 several notes in one block the port renders each of them, as upstream
-does; the JAX package renders only the last (its lowering keeps one
-trigger per voice), and so does this port's granular sampler.
+does, and so does its synth generator, which borrows this lowering; the
+JAX package renders only the last (its lowering keeps one trigger per
+voice), and so does this port's granular sampler.
 
 Granular playback (``with_granular_playback``) renders each voice as a
 pool of grains (generators/granular.py) with the modulation matrix
@@ -417,16 +418,16 @@ class Sampler(Generator):
     def _trigger_slots(self) -> bool:
         """Whether the lowering gives every note that starts on a voice in
         a block a trigger slot (``_trig_*`` [V, K]), or only the last
-        (``_trig_*`` [V]): the granular voices render one trigger."""
+        (``_trig_*`` [V]): the granular voices render one trigger; the
+        synth generator's voices, which borrow this, every one."""
         return self.granular is None
 
     def lower_block_inputs(self, block_start: int, block_len: int):
         """The block's voice arrays: each voice's continuing note
         (``_cont_*`` [V]) and the notes that start on it in the block, in
         trigger slots ``_trig_*`` [V, K] sorted by time (unused slots at
-        ``block_len``; K a power of two), or, for the granular sampler and
-        the synth generator, the last of them (``_trig_*`` [V], as the JAX
-        package lowers).  ``_smax`` is the step bound 2**bucket (monotone
+        ``block_len``; K a power of two), or, for the granular sampler,
+        the last of them (``_trig_*`` [V], as the JAX package lowers).  ``_smax`` is the step bound 2**bucket (monotone
         over the program's life), the JAX package's read-window tag."""
         if not hasattr(self, "_sr"):
             raise RuntimeError(

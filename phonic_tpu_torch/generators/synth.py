@@ -8,27 +8,40 @@ policy; frequency glides morph exponentially between notes
 (src/generator/fundsp/voice.rs:312-346, GlideState :538-560).
 
 The Sampler's voice plan (generators/plan.py) places the notes, and its
-lowering gives per-voice descriptors: one continuing note plus at most one
-retrigger per voice and block (the last, as in the JAX package; the
-sampler gives every note that starts in the block a trigger slot).  ``render_lanes`` evaluates every voice's note logic over ``[V, n]``
-and renders all V voices in ONE call of the batched SynthDef
-(sources/synth.py), so sub3's filter is one iir2 launch of V rows.  Glides
-are exact exponential-in-pitch trajectories computed from the note ages.
+lowering gives per-voice descriptors: one continuing note and a trigger
+slot for every note that starts on the voice in the block (``_trig_*``
+[V, K], unused slots past the block).  ``render_lanes`` picks each
+sample's note from them (the last slot that started at or before the
+sample, else the continuing note), which gives the sample its age, note,
+velocity, pan, speed and release, over ``[V, n]``, and renders all V
+voices in ONE call of the batched SynthDef (sources/synth.py), so sub3's
+filter is one iir2 launch of V rows.  A voice's oscillator phases and
+filter state run on across the notes it plays; the modulation matrix's
+LFOs and envelopes restart at each note, from its age.  Glides are exact
+exponential-in-pitch trajectories computed from the note ages, from the
+voice's previous note.
 
-Deliberate difference: the JAX package's generator has no ``envelope``
+Known deviation (from the JAX package): where a voice starts several notes
+in one block the port renders each of them, as upstream does; the JAX
+package renders only the last (its lowering keeps one trigger per voice).
+
+Deliberate differences: the JAX package's generator has no ``envelope``
 attribute, so a voice steal there raises AttributeError inside the
 borrowed allocator; here ``envelope = None`` makes a steal take the oldest
-voice, as the sampler without an envelope does.
+voice, as the sampler without an envelope does.  A modulation LFO's
+waveform parameter starts at its default's index (the JAX package passes
+its name, and no program builds).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..graph.nodes import BuildCtx
 from ..modulation.matrix import (
     ModulationRoutings, apply_matrix, build_source_specs, eval_sources,
@@ -37,7 +50,8 @@ from ..modulation.matrix import (
 from ..ops.convert import panning_factors
 from ..ops.precision import recip32
 from ..ops.smoothing import SegmentEvents, step_targets
-from ..params import DecibelScaling, FloatParameter, format_gain, format_pan
+from ..params import (DecibelScaling, EnumParameter, FloatParameter,
+                      format_gain, format_pan)
 from ..sources.synth import SynthContext, SynthDef
 from .base import Generator, GeneratorPlaybackOptions
 from .sampler import Sampler, voice_rows
@@ -69,6 +83,18 @@ def note_speed(note: torch.Tensor) -> torch.Tensor:
     float32 as the host's ``_Segment.speed0()`` lowers for a note, so an
     unautomated voice's frequency multiplier is exactly 1."""
     return torch.exp2((note.to(torch.float64) - 60.0) / 12.0).to(torch.float32)
+
+
+class _Notes(NamedTuple):
+    """Each voice row's note at each sample, ``[R, n]`` each."""
+
+    note: torch.Tensor  # MIDI note
+    age: torch.Tensor  # samples since the note started
+    velocity: torch.Tensor
+    pan: torch.Tensor  # the note's own pan
+    release_age: torch.Tensor  # age at note-off (inf = held)
+    active: torch.Tensor  # a note sounds on the voice
+    freq: torch.Tensor  # Hz, glides and speed automation applied
 
 
 class SynthGenerator(Generator):
@@ -131,21 +157,27 @@ class SynthGenerator(Generator):
         out = {VOLUME.id: self.options.volume, PANNING.id: self.options.panning}
         for p in self.synth.params:
             out[p.id] = p.default
+        # a modulation LFO's waveform starts at its default's index (the
+        # JAX package passes the name, which no program can build from)
+        for p in self.PARAMS:
+            if isinstance(p, EnumParameter):
+                out[p.id] = p.index_of(p.default)
         return out
 
     # voice allocation: reuse the Sampler's voice plan with a fixed release
-    # duration (and its prepare(): lowering needs the output rate), one
-    # trigger per voice and block
+    # duration (and its prepare(): lowering needs the output rate), a
+    # trigger slot for every note that starts on a voice in a block
     _voice_plan = Sampler._voice_plan
     _lower_notes = Sampler._lower_notes
+    _trigger_slots = Sampler._trigger_slots
     duration_frames = Sampler.duration_frames
     prepare = Sampler.prepare
 
-    def _trigger_slots(self) -> bool:
-        return False
-
     def lower_block_inputs(self, block_start: int, block_len: int):
+        """The Sampler's voice arrays (``_trig_*`` [V, K]); counts the V * K
+        trigger slots under ``synth.trigger_slots`` while tracing is on."""
         out = Sampler.lower_block_inputs(self, block_start, block_len)
+        tracing.count("synth.trigger_slots", out["_trig_time"].size)
         if self.modulation is not None:
             out["_mod_amt"] = self.modulation.amounts.copy()
             out["_mod_bip"] = self.modulation.bipolar.copy()
@@ -171,71 +203,102 @@ class SynthGenerator(Generator):
         voice arrays: the note logic runs over the L*V voices, lane-major,
         and the SynthDef over L*V voices in one call.  Returns audio
         [L, ch, n]."""
-        from ..graph.engine import tree_map
-        n = ctx.block_frames
         lanes = len(params[VOLUME.id])
-        sr = ctx.sample_rate
         nv = self.options.voices
         voice_no = torch.arange(1, nv + 1, dtype=torch.int64,
                                 device=params[VOLUME.id].device)
         if lanes == 1:
             p = {k: x[0] for k, x in params.items()}  # [n]
-            vs = {k: x[0] for k, x in inputs.items()}  # [V] or [V, K]
+            vs = {k: x[0] for k, x in inputs.items()}  # [V], [V, K], ...
         else:
             p, vs = voice_rows(params, inputs, nv)  # [L*V, n], [L*V, ...]
             voice_no = voice_no.repeat(lanes)
-        dev = vs["_trig_time"].device
+        with tracing.span("synth.notes"):
+            notes = self._note_logic(vs, live, ctx.block_frames,
+                                     ctx.sample_rate)
+        with tracing.span("synth.voices"):
+            return self._voices(state, p, vs, voice_no, notes, lanes, ctx)
+
+    def _note_logic(self, vs, live, n: int, sr: int) -> _Notes:
+        """Each sample's note on each voice row: the last trigger slot that
+        started at or before the sample, else the continuing note."""
+        t_time = vs["_trig_time"].contiguous()  # [R, K], sorted, unused at n
+        rows, k = t_time.shape
+        dev = t_time.device
         f32 = torch.float32
         i = torch.arange(n, dtype=torch.int64, device=dev)
+        # each sample's note: 0 the continuing note, j + 1 trigger slot j
+        slot = torch.searchsorted(
+            t_time, i.to(torch.int32).expand(rows, n).contiguous(),
+            right=True)
 
-        def auto(lane, nm, current):
-            """Per-sample automated value of one descriptor (stepped or
-            ramped knots), or the block's constant [V, 1]."""
+        def at(cont, trig):  # [R], [R, K] -> each sample's note's value
+            return torch.cat([cont[:, None], trig], dim=1).gather(1, slot)
+
+        def knots(lane, nm, current, count):
+            """Per-sample automated values of ``count`` notes (stepped or
+            ramped knots, ops/smoothing.step_targets)."""
             key = f"_{lane}_{nm}_t"
-            if key not in vs:
-                return current[:, None]
-            ev = SegmentEvents(vs[key].long(), vs[f"_{lane}_{nm}_v"],
+            ev = SegmentEvents(vs[key].reshape(count, -1).long(),
+                               vs[f"_{lane}_{nm}_v"].reshape(count, -1),
                                live[key])
-            return step_targets(current, ev, vs[f"_{lane}_{nm}_r"], n)[1]
+            ramps = vs[f"_{lane}_{nm}_r"].reshape(count, -1)
+            return step_targets(current.reshape(-1), ev, ramps, n)[1]
 
-        t_time = vs["_trig_time"].to(torch.int64)[:, None]
-        has_trig = ((vs["_trig_time"] < n) & (vs["_trig_vol"] > 0.0))[:, None]
+        def note_value(nm, cont, trig):
+            """Each sample's value of one note quantity: its note's
+            automation (reference: fundsp voice set_volume / set_panning /
+            set_speed with glide, fundsp/voice.rs:312-380), or the note's
+            constant."""
+            if f"_ca_{nm}_t" not in vs:
+                return at(cont, trig)
+            both = torch.cat([knots("ca", nm, cont, rows)[:, None],
+                              knots("ta", nm, trig, rows * k).view(rows, k, n)],
+                             dim=1)
+            return both.gather(1, slot[:, None]).squeeze(1)
+
+        in_b = slot > 0
         c_on = (vs["_cont_active"] > 0.5)[:, None]
-        in_b = (i >= t_time) & has_trig  # [V, n]
-        age = torch.where(in_b, i - t_time,
-                          vs["_cont_age0"].to(torch.int64)[:, None] + i)
-        note = torch.where(in_b, vs["_trig_note"][:, None],
-                           vs["_cont_note"][:, None])
-        # per-note automation (reference: fundsp voice set_volume /
-        # set_panning / set_speed with glide, fundsp/voice.rs:312-380)
-        vel = torch.where(in_b, auto("ta", "vol", vs["_trig_vol"]),
-                          auto("ca", "vol", vs["_cont_vol"]))
-        npan = torch.where(in_b, auto("ta", "pan", vs["_trig_pan"]),
-                           auto("ca", "pan", vs["_cont_pan"]))
+        age = i + at(vs["_cont_age0"], -t_time)
+        note = at(vs["_cont_note"], vs["_trig_note"])
+        vel = note_value("vol", vs["_cont_vol"], vs["_trig_vol"])
+        npan = note_value("pan", vs["_cont_pan"], vs["_trig_pan"])
         # speed arrays carry the absolute multiplier (initial
         # 2^((note-60)/12)); normalising by that makes freq_mult == 1
         # exactly when unautomated
-        spd = torch.where(in_b, auto("ta", "spd", vs["_trig_spd"]),
-                          auto("ca", "spd", vs["_cont_spd"]))
+        spd = note_value("spd", vs["_cont_spd"], vs["_trig_spd"])
         freq_mult = spd / note_speed(note)
-        rel = torch.where(in_b, vs["_trig_rel"][:, None],
-                          vs["_cont_rel"][:, None])
+        rel = at(vs["_cont_rel"], vs["_trig_rel"])
         active = in_b | c_on
-        gate = (active & (age.to(f32) < rel) & (age >= 0)).to(f32)
 
         if self.glide_secs > 0.0:
-            # exponential-in-pitch glide from the previous note on retrigger
+            # exponential-in-pitch glide from the voice's previous note: the
+            # continuing one (where it sounds) for the first trigger, the
+            # trigger before for each later one
             gsamples = max(self.glide_secs * sr, 1.0)
-            prog = torch.clamp((i - t_time).to(f32) * recip32(gsamples),
-                               0.0, 1.0)
-            c_note = vs["_cont_note"][:, None]
-            pitch = torch.where(in_b, c_note + (vs["_trig_note"][:, None]
-                                                - c_note) * prog, note)
-            freq = note_to_hz(torch.where(has_trig & c_on, pitch, note))
+            prog = torch.clamp(age.to(f32) * recip32(gsamples), 0.0, 1.0)
+            cont_note = vs["_cont_note"]
+            prev = at(cont_note, torch.cat([cont_note[:, None],
+                                            vs["_trig_note"][:, :-1]], dim=1))
+            glides = in_b & (c_on | (slot > 1))
+            freq = note_to_hz(torch.where(glides, prev + (note - prev) * prog,
+                                          note))
         else:
             freq = note_to_hz(note)
-        freq = freq * freq_mult
+        return _Notes(note, age, vel, npan, rel, active, freq * freq_mult)
 
+    def _voices(self, state, p, vs, voice_no, notes: _Notes, lanes: int,
+                ctx: BuildCtx):
+        """The modulation matrix and the SynthDef over every voice row, then
+        each voice's gain and pan, summed per lane: (new state, audio
+        [L, ch, n])."""
+        from ..graph.engine import tree_map
+        n = ctx.block_frames
+        sr = ctx.sample_rate
+        nv = self.options.voices
+        f32 = torch.float32
+        note, age, vel, npan, rel, active, freq = notes
+        gate = (active & (age.to(f32) < rel) & (age >= 0)).to(f32)
         mods = {}
         if self.mod_config is not None:
             src = eval_sources(build_source_specs(self.mod_config, p, sr), age,

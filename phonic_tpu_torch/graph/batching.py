@@ -400,7 +400,7 @@ class LeafBatch:
         Every array is stacked over the nodes; a node that lacks an
         optional one (per-note automation knots, loop bounds) gets its
         identity (knots and trigger slots past the block, zeros), and
-        arrays whose sizes differ between the nodes (a sampler's trigger
+        arrays whose sizes differ between the nodes (a generator's trigger
         slots) are padded with it to the largest.  The int32 and float32
         arrays pack into one int32 array, float32 values by their bits, so
         the bank's inputs reach the device in one copy and split there

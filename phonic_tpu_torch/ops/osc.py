@@ -14,6 +14,12 @@ of summation; against the JAX package they agree exactly where the
 increments are dyadic.  An increment ``freq / sr`` is the product with the
 rate's float32 reciprocal (ops/precision.recip32), as XLA compiles the
 division, so at a power-of-two rate every increment is exact.
+
+Known deviation (from the JAX package): the polyBLEP residual before a
+wrap is the standard ``b*b + 2b + 1`` at ``b = (t - 1)/dt``, which rises
+from 0 to 1 over the last sample step.  The JAX package adds 1 to ``b``,
+so its residual runs from 1 to 4 there and its saw and square gain a step
+and a spike at every wrap instead of losing one.
 """
 
 from __future__ import annotations
@@ -46,10 +52,12 @@ def _wrap(x64: torch.Tensor) -> torch.Tensor:
 
 
 def _polyblep(t, dt):
-    """2-sample polyBLEP residual at a discontinuity."""
+    """2-sample polyBLEP residual at a discontinuity: ``(t/dt - 1)**2``
+    negated just after it, rising ``(1 + (t - 1)/dt)**2`` from 0 to 1 just
+    before it."""
     dt = torch.clamp(dt, min=1e-9)
     a = t / dt
-    b = (t - 1.0) / dt + 1.0
+    b = (t - 1.0) / dt
     up = 2.0 * a - a * a - 1.0  # t < dt
     down = b * b + 2.0 * b + 1.0  # t > 1 - dt
     return torch.where(t < dt, up, torch.where(t > 1.0 - dt, down, 0.0))

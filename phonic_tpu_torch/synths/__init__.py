@@ -92,7 +92,10 @@ def sub3(shape: float = 2.0, detune_cents: float = 7.0, cutoff: float = 2500.0,
         shape_v = ctx.params["SHAP"]
         if "SHAP" in ctx.mods:
             shape_v = shape_v + ctx.mods["SHAP"]
-        det = torch.exp2(ctx.params["DETN"] * recip32(1200.0))
+        # float64 exp2 rounded once, the same float32 on the card and on the
+        # CPU: the detuned phases run for the voice's whole life
+        det = torch.exp2((ctx.params["DETN"] * recip32(1200.0)).to(
+            torch.float64)).to(torch.float32)
         cut_p = ctx.params["CUTF"]
         if "CUTF" in ctx.mods:
             cut_p = cut_p * (1.0 + ctx.mods["CUTF"])

@@ -21,6 +21,11 @@ the CPU and are held against the JAX package's examples.
   GPOS / GSIZ that moves grain start positions by up to ~6e-8 of the file:
   -73 dB of peak.  ``ATTRIBUTED`` evaluates those two with numpy, one
   rounding per operation.
+* play_custom's square takes a polyBLEP residual: the port's is the
+  standard one, the JAX package's runs from 1 to 4 before a wrap
+  (``ops/osc.py``'s known deviation).  Its golden comparison renders the
+  port with the JAX package's residual in place (``jax_polyblep.py``);
+  ``ATTRIBUTED`` renders the JAX example with the standard one.
 * play_file: its golden was rendered from an asset this checkout lacks;
   it is held against the JAX example rendered in the same test, the same
   frame count and -90 dB of peak.
@@ -38,6 +43,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from jax_polyblep import jax_polyblep
 from phonic_tpu_torch.io.wav import read_wav
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -110,6 +116,11 @@ def phase_accumulate(phase0, freq, sr):
 
 
 jnp.cumsum, jnp.exp2, josc.phase_accumulate = cumsum, exp2, phase_accumulate
+
+# the standard polyBLEP residual, the port's (tests/jax_polyblep.py)
+sys.path.insert(0, "tests")
+from jax_polyblep import polyblep
+josc._polyblep = polyblep
 
 # The modulation matrix's LFO sine and sum of products, evaluated by numpy
 # with one float32 rounding per operation (XLA's CPU code fuses them into
@@ -210,7 +221,8 @@ def jax_example(name, out, *args):
 def test_example_matches_golden(name, tmp_path):
     args, bound = GOLDENS[name]
     want = json.loads(GOLDEN.read_text())[name]
-    got = fingerprint(port_example(name, tmp_path / f"{name}.wav", *args))
+    with jax_polyblep():
+        got = fingerprint(port_example(name, tmp_path / f"{name}.wav", *args))
     assert got[0] == want[0], f"{name}: length {got[0]} != {want[0]}"
     np.testing.assert_allclose(got[1:], want[1:], rtol=0, atol=bound,
                                err_msg=f"{name} fingerprint")

@@ -28,7 +28,8 @@ the CPU at 1024-frame blocks.
   JAX's ``phase_accumulate`` sums evaluated by numpy in float64
   (``jax.pure_callback``), every pair holds -90 dB
   (scripts/torch_synth_note_gap.py: -130.5..-130.9 dB; -84.1..-96.2
-  without the attribution).
+  without the attribution).  JAX renders them with the standard polyBLEP
+  residual, the port's (``jax_polyblep.py``).
 * Every CUDA launcher makes its card current through ``DeviceGuard``,
   which gives the caller's device back (csrc/device_guard.cuh).
 """
@@ -55,6 +56,7 @@ from phonic_tpu_torch.io import wav as pwav
 from phonic_tpu_torch.parallel.mesh import (BatchedRenderProgram,
                                             GraphShardedProgram,
                                             graph_state_shardings)
+from jax_polyblep import standard_polyblep
 from test_parallel import make_full_family_prog, make_wide_prog
 from test_torch_parallel import (DIVERGENT, DIVERGENT_IDS, LANE_SCHEDULES,
                                  _lane_graph, _lane_programs, _leaf_banks,
@@ -454,19 +456,19 @@ def jax_synth_pairs():
     saved = josc.phase_accumulate
     josc.phase_accumulate = _attributed_phase_accumulate
     try:
-        progs = [jp.RenderProgram(_synth_pair(jp, *pair), jp.EngineConfig(
-            sample_rate=GEN_SR, block_frames=BLOCK)) for pair in PAIRS]
-        jb = JBatched(jp.RenderProgram(_synth_pair(jp, *PAIRS[0]),
-                                       jp.EngineConfig(sample_rate=GEN_SR,
-                                                       block_frames=BLOCK)),
-                      lanes=len(PAIRS))
-        pack = jb._step_program.pack_inputs
-        st, outs = jb.init_states(), []
-        for b in range(3):
-            packed = [pack(p.block_inputs(b)) for p in progs]
-            st, y = jb.step(st, jax.tree.map(lambda *xs: np.stack(xs),
-                                              *packed))
-            outs.append(np.asarray(y))
+        with standard_polyblep():
+            cfg = jp.EngineConfig(sample_rate=GEN_SR, block_frames=BLOCK)
+            progs = [jp.RenderProgram(_synth_pair(jp, *pair), cfg)
+                     for pair in PAIRS]
+            jb = JBatched(jp.RenderProgram(_synth_pair(jp, *PAIRS[0]), cfg),
+                          lanes=len(PAIRS))
+            pack = jb._step_program.pack_inputs
+            st, outs = jb.init_states(), []
+            for b in range(3):
+                packed = [pack(p.block_inputs(b)) for p in progs]
+                st, y = jb.step(st, jax.tree.map(lambda *xs: np.stack(xs),
+                                                  *packed))
+                outs.append(np.asarray(y))
     finally:
         josc.phase_accumulate = saved
     return np.concatenate(outs, axis=-1)

@@ -35,6 +35,8 @@ on the CPU at 1024-frame blocks and 3 lanes.
   one step bucket (its sampler step bound is a shape) and no per-note
   automation (its knot arrays' shapes follow the knot count), so that
   their inputs stack.
+* The JAX package renders with the standard polyBLEP residual, the port's
+  (``jax_polyblep.py``; the synth generator's sub3 takes one).
 """
 
 import functools
@@ -64,11 +66,19 @@ from phonic_tpu_torch.ops import rampread, scan
 from phonic_tpu_torch.parallel.mesh import (BatchedRenderProgram,
                                             GraphShardedProgram, data_mesh,
                                             graph_state_shardings)
+from jax_polyblep import standard_polyblep
 
 SR = 48000
 BLOCK = 1024
 LANES = 3
 DB90 = 10.0 ** (-90.0 / 20.0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _standard_polyblep():
+    """Every JAX program of the module traces the standard residual."""
+    with standard_polyblep():
+        yield
 
 
 def _effects(pkg):

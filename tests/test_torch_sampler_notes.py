@@ -7,8 +7,9 @@ generators/sampler.py, graph/batching.LeafBatch) on the CPU.
 * A voice that starts 4 notes in one block renders all 4.
 * The voice plan's work per block stays flat over a steady note part.
 * The voice plan places notes as a full replay of every event does.
-* The benchmark's note mix (``portbench/harness/notes.py``) draws its
-  notes from the seed.
+* The benchmark's note mixes (``portbench/harness/notes.py``), the
+  sampler's and the synth's, draw their notes and knob turns from the
+  seed.
 """
 
 import json
@@ -28,7 +29,9 @@ from phonic_tpu_torch.parallel.mesh import BatchedRenderProgram
 
 PORTBENCH = Path(__file__).resolve().parents[1] / "portbench"
 sys.path.insert(0, str(PORTBENCH))
-from harness.notes import note_events  # noqa: E402
+from harness import bench as harness  # noqa: E402
+from harness.notes import note_log  # noqa: E402
+from harness.traffic import Traffic  # noqa: E402
 from reference.sampler import SamplerReference  # noqa: E402
 
 SR = 48000
@@ -290,26 +293,39 @@ def test_plan_equals_replay(envelope):
     assert steals >= 10 and s._plan.steals == steals
 
 
-def test_note_mix_draws_from_the_seed():
-    """The benchmark's note mix: one seed gives the same notes, another
-    others; the count per block is the mix's rate and each note-off comes
-    after its note within the mix's hold range."""
-    mix = json.loads((PORTBENCH / "traffic" / "notes_dense.json").read_text())
+@pytest.mark.parametrize("mix_name, config", [
+    ("notes_dense", "sampler_64v"), ("synth_notes", "synth_64v")])
+def test_note_mix_draws_from_the_seed(mix_name, config):
+    """The benchmark's note mixes: one seed gives the same notes and knob
+    turns, another others; the counts per block are the mix's rates, each
+    note-off comes after its note within the mix's hold range and each
+    knob turn within its target's range (the configuration's ``knobs``)."""
+    mix = json.loads((PORTBENCH / "traffic" / f"{mix_name}.json").read_text())
+    cfg = harness.module("configs", config)
     n = mix["block_frames"]
+    ranges = {pid: (lo, hi) for _, pid, lo, hi in cfg.knobs({}, mix)}
 
     def draw(seed):
-        return [[note_events(mix, seed, lane, b, SR, "sampler")
-                 for lane in range(2)] for b in range(3)]
+        tr = Traffic(mix, cfg, cfg.spec(seed), seed, 2)
+        return note_log(mix, tr, 2, 3, SR, cfg.NOTE_TARGET)
     a, b, c = draw(2 ** 31 + 77), draw(2 ** 31 + 77), draw(12345)
     assert a == b and a != c and a[0][0] != a[0][1] and a[0][0] != a[1][0]
     per_block = mix["note_ons_per_audio_s"] * n / SR
+    turns = mix["events_per_audio_s"] * n / SR
     lo, hi = (x * SR for x in mix["note_seconds"])
     for blk, lanes in enumerate(a):
-        for notes in lanes:
+        for events in lanes:
+            notes = [e for e in events if e[0] == "note"]
+            sets = [e for e in events if e[0] == "set"]
             assert abs(len(notes) - per_block) < 1
+            assert abs(len(sets) - turns) < 1
+            assert len(notes) + len(sets) == len(events)
             for kind, key, note, onset, vel, off in notes:
-                assert kind == "note" and key == "sampler"
+                assert key == cfg.NOTE_TARGET
                 assert blk * n <= onset < (blk + 1) * n
                 assert mix["notes"][0] <= note <= mix["notes"][1]
                 assert mix["velocity"][0] <= vel <= mix["velocity"][1]
                 assert lo - 1 <= off - onset <= hi + 1
+            for kind, key, pid, frame, value, _ in sets:
+                assert ranges[pid][0] <= value <= ranges[pid][1]
+                assert blk * n <= frame < (blk + 1) * n

@@ -16,6 +16,11 @@ blocks and mid-range notes; scripts/torch_synth_parity.py).  So:
   by dyadic increments; automation and glides run on sine-based synths
   at low notes over 2048-frame blocks.
 
+The port's polyBLEP residual is the standard one, where the JAX package's
+runs from 1 to 4 before a wrap (``ops/osc.py``'s known deviation): every
+JAX render here runs with the standard residual put in its place
+(``jax_polyblep.py``), and the residual itself is held to its definition.
+
 Every render is held to -90 dB of each block's peak.  A JAX state carried
 over with ``state_from_jax`` renders the next block as JAX does;
 ``freq_mult`` is exactly 1 without automation; ``play_synth`` and
@@ -40,6 +45,7 @@ from phonic_tpu_torch.ops.precision import recip32
 from phonic_tpu_torch.outputs.null import NullOutput
 from phonic_tpu_torch.player import (GeneratorPlaybackHandle, PlaybackHandle,
                                      Player, PlayerConfig)
+from jax_polyblep import standard_polyblep
 
 SR = 48000
 GEN_SR = 65536
@@ -53,7 +59,7 @@ def _package(name):
     names = {"": ("Mixer", "RenderProgram", "EngineConfig", "SynthDef",
                   "SynthPlaybackOptions", "SynthSource", "SynthGenerator",
                   "GeneratorPlaybackOptions", "ModulationConfig",
-                  "EnvelopeSource"),
+                  "EnvelopeSource", "VelocitySource"),
              ".params": ("FloatParameter",)}
     ns = {"synths": importlib.import_module(name + ".synths")}
     for mod, attrs in names.items():
@@ -108,6 +114,11 @@ def test_oscillators_match_jax_at_dyadic_increments():
         np.testing.assert_array_equal(got[v].numpy(), np.asarray(want))
         assert float(got_end[v]) == float(want_end)
     shapes = np.linspace(0.0, 3.0, n, dtype=np.float32)
+    with standard_polyblep():
+        _waves_match_jax(got, fr, shapes)
+
+
+def _waves_match_jax(got, fr, shapes):
     for v in range(3):
         jph, pph, f = jnp.asarray(got[v].numpy()), got[v], torch.tensor(fr[v])
         pairs = [(josc.sine(jph), posc.sine(pph)),
@@ -123,6 +134,29 @@ def test_oscillators_match_jax_at_dyadic_increments():
         for want, have in pairs:
             np.testing.assert_allclose(have.numpy(), np.asarray(want),
                                        rtol=0, atol=1e-6)
+
+
+def test_polyblep_is_the_standard_residual():
+    """The residual at phases around a wrap is the two-sample polyBLEP's
+    (-(1 - t/dt)^2 after the wrap, (1 + (t - 1)/dt)^2 before it, 0
+    elsewhere), evaluated in float64; so a saw at 1000 Hz stays within
+    [-1, 1] and splits its drop of 2 at a wrap into two steps of about
+    1."""
+    dt = np.float32(0.05)
+    t = np.float32(np.concatenate([np.linspace(0.0, 0.049, 50),
+                                   np.linspace(0.1, 0.9, 9),
+                                   np.linspace(0.951, 0.999, 49)]))
+    t64, dt64 = t.astype(np.float64), np.float64(dt)
+    want = np.where(t64 < dt64, -(1.0 - t64 / dt64) ** 2,
+                    np.where(t64 > 1.0 - dt64, (1.0 + (t64 - 1.0) / dt64) ** 2,
+                             0.0))
+    got = posc._polyblep(torch.tensor(t), torch.tensor(dt)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    freq = torch.full((4800,), 1000.0)
+    ph, _ = posc.phase_accumulate(torch.tensor(0.0), freq, SR)
+    saw = posc.saw(ph, freq, SR).numpy()
+    assert np.abs(saw).max() <= 1.0
+    assert np.abs(np.diff(saw)).max() <= 1.0 + 2 * 2 * 1000.0 / SR
 
 
 # ---------------------------------------------------------------------------
@@ -157,10 +191,11 @@ def _schedule_sources(prog):
 
 @pytest.fixture(scope="module")
 def jax_sources():
-    prog = _program(JAX, _sources(JAX), SR, BLOCK)
-    _schedule_sources(prog)
-    assert len(prog.gen_batches) == 1  # the dx7 bank
-    return prog, _render(JAX, prog, 3 * BLOCK)
+    with standard_polyblep():
+        prog = _program(JAX, _sources(JAX), SR, BLOCK)
+        _schedule_sources(prog)
+        assert len(prog.gen_batches) == 1  # the dx7 bank
+        return prog, _render(JAX, prog, 3 * BLOCK)
 
 
 def test_synth_sources_match_jax(jax_sources):
@@ -219,9 +254,11 @@ def _generators(pkg):
 
 @pytest.fixture(scope="module")
 def jax_generators():
-    prog = _program(JAX, _generators(JAX), GEN_SR, GEN_BLOCK)
-    want = _render(JAX, prog, 3 * GEN_BLOCK)
-    state1, _ = prog.step_packed(prog.init_state(), prog.packed_block_inputs(0))
+    with standard_polyblep():
+        prog = _program(JAX, _generators(JAX), GEN_SR, GEN_BLOCK)
+        want = _render(JAX, prog, 3 * GEN_BLOCK)
+        state1, _ = prog.step_packed(prog.init_state(),
+                                     prog.packed_block_inputs(0))
     return prog, want, jax.device_get(state1)
 
 
@@ -314,6 +351,51 @@ def test_modulated_user_parameter_matches_jax():
     early = np.abs(got[0, 100:400]).max()
     late = np.abs(got[0, 1500:2000]).max()
     assert early < 0.7 < late
+
+
+def _modulated_sub3(pkg):
+    """sub3 (detune 0) at GEN_SR with an envelope on its shape and the
+    velocity on its cutoff, each of 6 voices starting at most one note per
+    block over 3 blocks and no voice stolen; one note's volume and pan
+    automated, and the cutoff set at runtime."""
+    main = pkg.Mixer("main")
+    g = pkg.SynthGenerator(pkg.synths.sub3(detune_cents=0.0),
+                           pkg.GeneratorPlaybackOptions(voices=6),
+                           release_secs=0.02, name="sub3")
+    g.with_modulation(pkg.ModulationConfig(
+        sources=(pkg.EnvelopeSource("ENV2", attack=0.005, decay=0.02,
+                                    sustain=0.2, release=0.01),
+                 pkg.VelocitySource()),
+        targets=("CUTF", "SHAP")))
+    g.set_modulation("VELM", "CUTF", 0.4, bipolar=False)
+    g.set_modulation("ENV2", "SHAP", 0.5, bipolar=False)
+    for k, note in enumerate((45, 57, 69, 81)):
+        nid = g.note_on(note, 0.5 + 0.1 * k, -0.3 + 0.2 * k, time=k * 300)
+        g.note_off(nid, time=k * 300 + 1500)
+    nid = g.note_on(57, 0.9, time=GEN_BLOCK + 200)
+    g.set_note_volume(nid, 0.4, time=GEN_BLOCK + 900)
+    g.set_note_panning(nid, 0.6, time=2 * GEN_BLOCK + 100)
+    g.note_off(nid, time=2 * GEN_BLOCK + 1200)
+    g.note_off(g.note_on(69, 0.7, time=2 * GEN_BLOCK + 400),
+               time=2 * GEN_BLOCK + 1000)
+    main.add_source(g)
+    return main
+
+
+def test_modulated_sub3_with_one_start_per_voice_matches_jax():
+    """Where no voice starts more than one note in a block the port's
+    trigger slots render as the JAX package's one trigger per voice:
+    sub3 with its modulation matrix, per-note automation and the cutoff
+    set at runtime (the generators above add glides and note speeds)."""
+    outs = []
+    with standard_polyblep():
+        for pkg in (JAX, PORT):
+            prog = _program(pkg, _modulated_sub3(pkg), GEN_SR, GEN_BLOCK)
+            prog.set_parameter("main/sub3", "CUTF", 900.0,
+                               at_frame=GEN_BLOCK + 64)
+            outs.append(_render(pkg, prog, 3 * GEN_BLOCK))
+    want, got = outs
+    _close(got, want, GEN_BLOCK)
 
 
 def test_modulation_targets_must_be_user_parameters():

@@ -14,6 +14,9 @@
   ``cpu_load()`` is those spans' durations folded by its own rule.
 * The benchmark's readers of the spans (``portbench/metrics/``) read
   nothing without spans, and per block values that add up with them.
+* A synth generator's render records ``synth.notes`` and ``synth.voices``
+  inside its pool's span, and its lowering counts its trigger slots under
+  ``synth.trigger_slots``; with tracing off, neither.
 """
 
 import importlib.util
@@ -29,7 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 from phonic_tpu_torch import (AudioFileBuffer, EngineConfig,
                               FilePlaybackOptions, FileSource,
                               GeneratorPlaybackOptions, Mixer, RenderProgram,
-                              Sampler, tracing)
+                              Sampler, SynthGenerator, synths, tracing)
 from phonic_tpu_torch.effects.chorus import ChorusEffect
 from phonic_tpu_torch.effects.eq5 import Eq5Effect
 from phonic_tpu_torch.outputs.null import NullOutput
@@ -250,3 +253,38 @@ def test_benchmark_readers_add_up():
         assert re.search(rf"[:,] {re.escape(name)} -?[0-9.]+ x1[,;]",
                          table), (name, table)
     assert table.endswith("; counters per block: kernel.iir2 2")
+
+
+def test_synth_spans_and_counter():
+    """A 4-voice synth generator whose voice 0 starts two notes in block 0
+    (2 trigger slots): off, a block records nothing; on, one block records
+    ``synth.notes`` and ``synth.voices`` inside ``source.pool`` and counts
+    4 x 2 slots, which the benchmark's readers give per block."""
+    def program():
+        gen = SynthGenerator(synths.sub3(), GeneratorPlaybackOptions(voices=4),
+                             release_secs=0.001, name="synth")
+        for t in (100, 300):
+            gen.note_off(gen.note_on(60, time=t), time=t + 50)
+        m = Mixer("main")
+        m.add_source(gen)
+        return RenderProgram(m, EngineConfig(sample_rate=SR, block_frames=BLOCK,
+                                             device="cpu"))
+
+    r = types.SimpleNamespace(module=lambda kind, name: _metric(name),
+                              notes=[])
+    readers = ("synth.host_ms_per_block", "synth.trigger_slots_per_block")
+    _render(program())
+    assert tracing.spans() == [] and tracing.counters() == {}
+    assert [_metric(m).read(r) for m in readers] == [None, None]
+    prog = program()
+    tracing.enable()
+    _render(prog)
+    tracing.disable()
+    sp = tracing.spans()
+    names = [s.name for s in sp]
+    pool = names.index("source.pool")
+    assert [s.name for s in sp if s.parent == pool] == ["synth.notes",
+                                                        "synth.voices"]
+    assert tracing.counters()["synth.trigger_slots"] == 8
+    host, slots = (_metric(m).read(r) for m in readers)
+    assert host > 0.0 and slots == 8.0
