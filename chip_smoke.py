@@ -45,7 +45,9 @@ phase fails.  Phases:
    test ``tests/test_torch_delay_cuda.py`` holds it closer) at the
    mastering chain's shape (one lane, 131072 samples, b = 8192, W =
    50432), the mastering lanes cell's (8 lanes) and at b = 1024, each timed
-   beside the plain loop;
+   beside the plain loop; kernels 10 and 11, with iir2 between them,
+   against their plain version at the synth cell's shape (8 lanes of 64
+   voices, K = 8 trigger slots), each timed beside its bytes bound;
 3. the headline graph (16 file sources -> 4 sub-mixers with EQ5 + chorus ->
    reverb + gain, 131072-frame blocks at 48 kHz stereo) rendered on the card
    through ``RenderProgram.render``: the launch counters of its kernels
@@ -210,7 +212,11 @@ from phonic_tpu_torch.io.decoder import AudioFileBuffer
 from phonic_tpu_torch.mastering import mastering_program
 from phonic_tpu_torch.ops import (
     chorusline, delayline, follower, rampread, resample, reverbnet, scan,
-    smoothing,
+    smoothing, synthvoice,
+)
+from phonic_tpu_torch import synths as synth_defs
+from phonic_tpu_torch.modulation.config import (
+    EnvelopeSource, LfoSource, ModulationConfig, VelocitySource,
 )
 from phonic_tpu_torch.play_file import (
     BLOCK_FRAMES as PLAY_BLOCK, file_program, play_file_program, render_file,
@@ -226,6 +232,8 @@ from phonic_tpu_torch.player_rt import (
     BLOCK_FRAMES as PLAYER_BLOCK, player_rt_player,
 )
 from phonic_tpu_torch.generators.synth import note_speed
+from phonic_tpu_torch.generators import synth as synth_gen
+from phonic_tpu_torch.generators.sampler import voice_rows
 from phonic_tpu_torch.graph.batching import stack_states
 from phonic_tpu_torch.graph.mixer import Mixer
 from phonic_tpu_torch.graph.engine import RenderProgram
@@ -264,7 +272,7 @@ OPS_PER_SAMPLE = {"follower": 5, "gate": 15}
 # launch counters: kernel -> its counter in phonic_tpu_torch.tracing
 COUNTERS = {k: f"kernel.{k}" for k in
             ("ramp_read", "iir2", "iir1", "follower", "gate", "smooth",
-             "delay", "reverb", "chorus")}
+             "delay", "reverb", "chorus", "synth_voice", "synth_mix")}
 # the kernels whose machine code phase 1 summarises
 SASS_KERNELS = ("gate_kernel", "iir2_kernel", "iir1_kernel", "ramp_read_kernel")
 SOURCES = {"ramp_read": ("phonic_tpu_torch/csrc/rampread.cu",
@@ -283,7 +291,10 @@ SOURCES = {"ramp_read": ("phonic_tpu_torch/csrc/rampread.cu",
            # of jnp operations
            "delay": ("phonic_tpu_torch/csrc/delay.cu", None),
            "reverb": ("phonic_tpu_torch/csrc/reverb.cu", None),
-           "chorus": ("phonic_tpu_torch/csrc/chorus.cu", None)}
+           "chorus": ("phonic_tpu_torch/csrc/chorus.cu", None),
+           # the JAX package's synth render is plain jnp
+           "synth_voice": ("phonic_tpu_torch/csrc/synthvoice.cu", None),
+           "synth_mix": ("phonic_tpu_torch/csrc/synthvoice.cu", None)}
 
 
 def log(*args):
@@ -545,6 +556,7 @@ def check_kernels(dev):
     check_smoothers(dev, rng, record)
     check_delay(dev, record)
     check_effect_lines(dev, record)
+    check_synth_voice(dev, record)
     return results, off_path, calls
 
 
@@ -936,6 +948,139 @@ def check_effect_lines(dev, record):
                LINE_OPS[kind] * 2 * lanes * n, fn, label, timed=path is None)
 
 
+# kernels 10 and 11 at the synth cell's shape (portbench synth_64v.offline:
+# 8 lanes of 64 sub3 voices, 131072-frame blocks, K = 8 trigger slots)
+SYNTH_LANES, SYNTH_VOICES, SYNTH_K = 8, 64, 8
+# float32 operations per voice sample of kernel 10 at the cell's patch
+# (its plain version's elementwise steps: ~150 for the three oscillators,
+# ~80 for the two envelopes, ~40 for the LFO and the matrix, ~60 for the
+# note, the cutoff, the SVF's coefficients, the operands and the gains),
+# and of kernel 11 per row and sample (the tap, two products and sums)
+SYNTH_VOICE_OPS, SYNTH_MIX_OPS = 330, 6
+
+
+def synth_voice_operands(dev, lanes=SYNTH_LANES, voices=SYNTH_VOICES,
+                         n=BLOCK, k=SYNTH_K, seed=0):
+    """The synth cell's generator (sub3, its LFO / velocity / envelope
+    patch) and one block of its inputs on the card: each voice a
+    continuing note and k trigger slots, 6 of them used, the cutoff ramped
+    across the block.  Returns (generator, state rows, params [L, n],
+    lowered inputs [L, V, ...], live)."""
+    gen = synth_gen.SynthGenerator(
+        synth_defs.sub3(), synth_gen.GeneratorPlaybackOptions(
+            voices=voices, volume=0.5), release_secs=0.3)
+    gen.with_modulation(ModulationConfig(
+        sources=(LfoSource("LFO1", rate=2.0),
+                 EnvelopeSource("ENV2", attack=0.005, decay=0.4,
+                                sustain=0.2, release=0.3),
+                 VelocitySource()), targets=("CUTF", "SHAP")))
+    for route in (("LFO1", "CUTF", 0.3, True), ("VELM", "CUTF", 0.4, False),
+                  ("ENV2", "SHAP", 0.5, False)):
+        gen.set_modulation(*route)
+    g = torch.Generator().manual_seed(seed)
+    rows = lanes * voices
+    t = torch.sort(torch.randint(0, n, (rows, k), generator=g), dim=1).values
+    t[:, 6:] = n
+    note = torch.randint(36, 85, (rows, k), generator=g).float()
+    cont_note = torch.randint(36, 85, (rows,), generator=g).float()
+    vs = {"_trig_time": t.to(torch.int32), "_trig_note": note,
+          "_trig_vol": 0.3 + 0.7 * torch.rand(rows, k, generator=g),
+          "_trig_pan": torch.rand(rows, k, generator=g) - 0.5,
+          "_trig_rel": torch.randint(2000, 40000, (rows, k),
+                                     generator=g).float(),
+          "_trig_spd": torch.exp2((note.double() - 60.0) / 12.0).float(),
+          "_cont_active": (torch.rand(rows, generator=g) < 0.8).float(),
+          "_cont_note": cont_note,
+          "_cont_vol": 0.3 + 0.7 * torch.rand(rows, generator=g),
+          "_cont_pan": torch.rand(rows, generator=g) - 0.5,
+          "_cont_age0": torch.randint(0, 200000, (rows,),
+                                      generator=g).to(torch.int32),
+          "_cont_rel": torch.where(torch.rand(rows, generator=g) < 0.5,
+                                   float("inf"), 150000.0),
+          "_cont_spd": torch.exp2((cont_note.double() - 60.0) / 12.0).float()}
+    inputs = {key: a.reshape((lanes, voices) + a.shape[1:]).to(dev)
+              for key, a in vs.items()}
+    for key, a in (("_mod_amt", gen.modulation.amounts),
+                   ("_mod_bip", gen.modulation.bipolar)):
+        inputs[key] = torch.as_tensor(a, device=dev).expand(
+            lanes, -1, -1).contiguous()
+    initial = gen.param_initials()
+    params = {q.id: torch.full((lanes, n), float(initial.get(q.id, q.default)),
+                               device=dev) for q in gen.PARAMS}
+    params["CUTF"] = torch.linspace(400.0, 6000.0, n, device=dev).expand(
+        lanes, -1).contiguous()
+    ctx = BuildCtx(SR, 2, n, 16, torch.float32, dev)
+    state = gen.synth.init(ctx, rows)
+    state["phase"] = torch.rand(rows, 3, generator=g).to(dev)
+    return gen, state, params, inputs, {}
+
+
+def synth_plain(gen, state, params, inputs, live, n):
+    """The plain version of kernels 10, 2 and 11 on the card: (new state,
+    audio [L, 2, n])."""
+    lanes, nv = params["SVOL"].shape[0], gen.options.voices
+    p, vs = voice_rows(params, inputs, nv)
+    voice_no = torch.arange(1, nv + 1, device=params["SVOL"].device).repeat(
+        lanes)
+    notes = synthvoice.note_logic(vs, live, n, SR, gen.glide_secs)
+    return synthvoice.render_plain(
+        gen.synth.kernel, state, p, notes,
+        (gen.mod_config, vs["_mod_amt"], vs["_mod_bip"]), voice_no, SR,
+        lanes, 2, "SVOL", "SPAN")
+
+
+def check_synth_voice(dev, record):
+    """Kernels 10 and 11 (with iir2 between them) against their plain
+    version on the card at the synth cell's shape (the lane output and the
+    new state, -90 dB of the peak as the other kernels; the card test
+    ``tests/test_torch_synthvoice_cuda.py`` holds them to -110 dB of each
+    lane's RMS), each kernel timed alone beside its bytes bound and the
+    chain beside the plain version.  The bytes: kernel 10 reads the 6
+    parameter rows per lane and writes 6 operands and 2 gains per voice
+    sample; kernel 11 reads a state and 2 gains per voice sample and
+    writes the lanes' stereo output."""
+    n = BLOCK
+    gen, state, params, inputs, live = synth_voice_operands(dev)
+    voice = gen.synth.kernel
+    rows = SYNTH_LANES * SYNTH_VOICES
+    slots = synthvoice.slot_rows(inputs, live, n)
+    mod = synthvoice.sources(voice, gen.mod_config, params,
+                             inputs["_mod_amt"], inputs["_mod_bip"], SR)
+    args = (voice, state, params, slots, mod, SR, 0.0, 2, "SVOL", "SPAN")
+
+    def outputs(res):
+        new, audio = res
+        return audio, new["phase"], new["svf"].ic1, new["svf"].ic2
+
+    chain = functools.partial(synthvoice.render_kernels, *args)
+    plain = functools.partial(synth_plain, gen, state, params, inputs, live, n)
+    label = f"L={SYNTH_LANES} V={SYNTH_VOICES} K={SYNTH_K} n={n}"
+    err, chain_ms, plain_ms = compare(
+        f"synth_voice + iir2 + synth_mix {label}", lambda: outputs(chain()),
+        lambda: outputs(plain()), DB90, relative=True, reps=(10, 2))
+    p = {pid: params[pid].contiguous() for pid in (
+        voice.shape, voice.detune, voice.cutoff, voice.resonance, "SVOL",
+        "SPAN")}
+    voice_fn = functools.partial(
+        synthvoice.voice_kernel, voice, state["phase"].contiguous(), p,
+        slots, mod, SR, 0.0, 2, "SVOL", "SPAN")
+    kv = voice_fn()
+    s1, s2 = scan.iir2(*kv.operands, state["svf"].ic1, state["svf"].ic2)
+    mix_fn = functools.partial(synthvoice.mix_kernel, s1, s2, state["svf"],
+                               kv.gains, SYNTH_LANES, 2)
+    for name, fn, moved, ops in (
+            ("synth_voice", voice_fn,
+             4 * (6 * SYNTH_LANES * n + 8 * rows * n),
+             SYNTH_VOICE_OPS * rows * n),
+            ("synth_mix", mix_fn,
+             4 * (3 * rows * n + 2 * SYNTH_LANES * n),
+             SYNTH_MIX_OPS * rows * n)):
+        ms = time_ms(fn, 10)
+        log(f"  {name} {label}: wrapper {ms:.4f} ms")
+        record(name, "synth_64v", (err, ms, plain_ms), moved, ops, fn, label,
+               chain_ms=chain_ms)
+
+
 def plain_outputs(name, want):
     """The plain version's outputs in the kernel wrapper's layout."""
     if name == "gate":  # ((env, hold, gain), gains) -> (state [B, 3], gains)
@@ -1302,7 +1447,8 @@ def synth_phase(dev):
     Player."""
     launches, prog = render_path(
         "synth_64v", lambda d: synth_program(block_frames=BLOCK, device=d),
-        dev, ("iir2",), per_block={"iir2": 2})
+        dev, ("iir2", "synth_voice", "synth_mix"),
+        per_block={"iir2": 2, "synth_voice": 1, "synth_mix": 1})
     notes = torch.arange(128, dtype=torch.float32, device=dev)
     spd = torch.as_tensor(np.float32([2.0 ** ((k - 60) / 12.0)
                                       for k in range(128)]), device=dev)
@@ -1984,8 +2130,8 @@ def kernel_report(measured, off_path, paths):
         report["kernels"].append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
-            **{k: by_path["mastering" if "mastering" in by_path
-                          else "headline"][k] for k in (
+            **{k: (by_path.get("mastering") or by_path.get("headline")
+                   or next(iter(by_path.values())))[k] for k in (
                 "launches", "max_abs_err", "ms", "kernel_ms", "plain_ms",
                 "bound_ms", "bound_by")},
             # no single PyTorch call computes any of these functions;

@@ -15,7 +15,11 @@ sample's note from them (the last slot that started at or before the
 sample, else the continuing note), which gives the sample its age, note,
 velocity, pan, speed and release, over ``[V, n]``, and renders all V
 voices in ONE call of the batched SynthDef (sources/synth.py), so sub3's
-filter is one iir2 launch of V rows.  A voice's oscillator phases and
+filter is one iir2 launch of V rows.  A SynthDef that describes its voice
+for the synth kernels (sub3) renders through ops/synthvoice.py instead: on
+the card the note logic, the matrix and the voice up to the filter are one
+launch (kernel 10), the filter iir2, its output, the gains and the voice
+sum another (kernel 11).  A voice's oscillator phases and
 filter state run on across the notes it plays; the modulation matrix's
 LFOs and envelopes restart at each note, from its age.  Glides are exact
 exponential-in-pitch trajectories computed from the note ages, from the
@@ -36,7 +40,7 @@ its name, and no program builds).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -47,9 +51,12 @@ from ..modulation.matrix import (
     ModulationRoutings, apply_matrix, build_source_specs, eval_sources,
     source_polarity,
 )
+from ..ops import synthvoice
 from ..ops.convert import panning_factors
-from ..ops.precision import recip32
-from ..ops.smoothing import SegmentEvents, step_targets
+from ..ops.synthvoice import Notes, note_logic, voice_seeds
+# the module's note helpers (the JAX package's names) live in ops/synthvoice
+# beside the note logic
+from ..ops.synthvoice import note_speed, note_to_hz  # noqa: F401
 from ..params import (DecibelScaling, EnumParameter, FloatParameter,
                       format_gain, format_pan)
 from ..sources.synth import SynthContext, SynthDef
@@ -62,40 +69,6 @@ NEVER = np.iinfo(np.int32).max
 VOLUME = FloatParameter("SVOL", "Volume", 1e-6, 15.848932, 1.0,
                         scaling=DecibelScaling(-60.0, 24.0), formatter=format_gain)
 PANNING = FloatParameter("SPAN", "Panning", -1.0, 1.0, 0.0, formatter=format_pan)
-
-# a synth voice's modulation seed: _SEED ^ (0x9E37 * (voice index + 1))
-_SEED = 0x7157
-
-
-def _exp2_f32(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``exp2`` as float64 rounded once, identical on the card and
-    on the CPU (their float32 ``exp2`` may differ by an ulp)."""
-    return torch.exp2(x.to(torch.float64)).to(torch.float32)
-
-
-def note_to_hz(note):
-    note = torch.as_tensor(note, dtype=torch.float32)
-    return 440.0 * _exp2_f32((note - 69.0) * recip32(12.0))
-
-
-def note_speed(note: torch.Tensor) -> torch.Tensor:
-    """2^((note - 60) / 12) evaluated in float64 and rounded once: the same
-    float32 as the host's ``_Segment.speed0()`` lowers for a note, so an
-    unautomated voice's frequency multiplier is exactly 1."""
-    return torch.exp2((note.to(torch.float64) - 60.0) / 12.0).to(torch.float32)
-
-
-class _Notes(NamedTuple):
-    """Each voice row's note at each sample, ``[R, n]`` each."""
-
-    note: torch.Tensor  # MIDI note
-    age: torch.Tensor  # samples since the note started
-    velocity: torch.Tensor
-    pan: torch.Tensor  # the note's own pan
-    release_age: torch.Tensor  # age at note-off (inf = held)
-    active: torch.Tensor  # a note sounds on the voice
-    freq: torch.Tensor  # Hz, glides and speed automation applied
-
 
 class SynthGenerator(Generator):
     """Polyphonic note-driven synth built from a SynthDef."""
@@ -202,120 +175,81 @@ class SynthGenerator(Generator):
         generator (leading dimension L), each with its own parameters and
         voice arrays: the note logic runs over the L*V voices, lane-major,
         and the SynthDef over L*V voices in one call.  Returns audio
-        [L, ch, n]."""
+        [L, ch, n].
+
+        A SynthDef with a kernel description (``SynthDef.kernel``, sub3's)
+        renders through ops/synthvoice: on the card as kernels 10, 2 (iir2)
+        and 11, on the CPU as their plain version."""
+        from ..graph.engine import tree_map
         lanes = len(params[VOLUME.id])
         nv = self.options.voices
-        voice_no = torch.arange(1, nv + 1, dtype=torch.int64,
-                                device=params[VOLUME.id].device)
-        if lanes == 1:
-            p = {k: x[0] for k, x in params.items()}  # [n]
-            vs = {k: x[0] for k, x in inputs.items()}  # [V], [V, K], ...
+        n, sr = ctx.block_frames, ctx.sample_rate
+        rows = tree_map(lambda a: a.flatten(0, 1), state["synth"])
+        voice = self.synth.kernel
+        if voice is not None and not voice.describes(self.synth):
+            voice = None
+        if voice is not None and params[VOLUME.id].is_cuda:
+            with tracing.span("synth.notes"):
+                slots = synthvoice.slot_rows(inputs, live, n)
+            with tracing.span("synth.voices"):
+                mod = None
+                if self.mod_config is not None:
+                    mod = synthvoice.sources(voice, self.mod_config, params,
+                                             inputs["_mod_amt"],
+                                             inputs["_mod_bip"], sr)
+                synth_state, audio = synthvoice.render_kernels(
+                    voice, rows, params, slots, mod, sr, self.glide_secs,
+                    ctx.channels, VOLUME.id, PANNING.id)
         else:
-            p, vs = voice_rows(params, inputs, nv)  # [L*V, n], [L*V, ...]
-            voice_no = voice_no.repeat(lanes)
-        with tracing.span("synth.notes"):
-            notes = self._note_logic(vs, live, ctx.block_frames,
-                                     ctx.sample_rate)
-        with tracing.span("synth.voices"):
-            return self._voices(state, p, vs, voice_no, notes, lanes, ctx)
+            voice_no = torch.arange(1, nv + 1, dtype=torch.int64,
+                                    device=params[VOLUME.id].device)
+            if lanes == 1:
+                p = {k: x[0] for k, x in params.items()}  # [n]
+                vs = {k: x[0] for k, x in inputs.items()}  # [V], [V, K], ...
+            else:
+                p, vs = voice_rows(params, inputs, nv)  # [L*V, n], ...
+                voice_no = voice_no.repeat(lanes)
+            with tracing.span("synth.notes"):
+                notes = note_logic(vs, live, n, sr, self.glide_secs)
+            mod = (None if self.mod_config is None else
+                   (self.mod_config, vs["_mod_amt"], vs["_mod_bip"]))
+            with tracing.span("synth.voices"):
+                if voice is not None:
+                    synth_state, audio = synthvoice.render_plain(
+                        voice, rows, p, notes, mod, voice_no, sr, lanes,
+                        ctx.channels, VOLUME.id, PANNING.id)
+                else:
+                    synth_state, audio = self._voices(rows, p, notes, mod,
+                                                      voice_no, lanes, ctx)
+        return ({"synth": tree_map(lambda a: a.unflatten(0, (lanes, nv)),
+                                   synth_state)}, audio)
 
-    def _note_logic(self, vs, live, n: int, sr: int) -> _Notes:
-        """Each sample's note on each voice row: the last trigger slot that
-        started at or before the sample, else the continuing note."""
-        t_time = vs["_trig_time"].contiguous()  # [R, K], sorted, unused at n
-        rows, k = t_time.shape
-        dev = t_time.device
-        f32 = torch.float32
-        i = torch.arange(n, dtype=torch.int64, device=dev)
-        # each sample's note: 0 the continuing note, j + 1 trigger slot j
-        slot = torch.searchsorted(
-            t_time, i.to(torch.int32).expand(rows, n).contiguous(),
-            right=True)
-
-        def at(cont, trig):  # [R], [R, K] -> each sample's note's value
-            return torch.cat([cont[:, None], trig], dim=1).gather(1, slot)
-
-        def knots(lane, nm, current, count):
-            """Per-sample automated values of ``count`` notes (stepped or
-            ramped knots, ops/smoothing.step_targets)."""
-            key = f"_{lane}_{nm}_t"
-            ev = SegmentEvents(vs[key].reshape(count, -1).long(),
-                               vs[f"_{lane}_{nm}_v"].reshape(count, -1),
-                               live[key])
-            ramps = vs[f"_{lane}_{nm}_r"].reshape(count, -1)
-            return step_targets(current.reshape(-1), ev, ramps, n)[1]
-
-        def note_value(nm, cont, trig):
-            """Each sample's value of one note quantity: its note's
-            automation (reference: fundsp voice set_volume / set_panning /
-            set_speed with glide, fundsp/voice.rs:312-380), or the note's
-            constant."""
-            if f"_ca_{nm}_t" not in vs:
-                return at(cont, trig)
-            both = torch.cat([knots("ca", nm, cont, rows)[:, None],
-                              knots("ta", nm, trig, rows * k).view(rows, k, n)],
-                             dim=1)
-            return both.gather(1, slot[:, None]).squeeze(1)
-
-        in_b = slot > 0
-        c_on = (vs["_cont_active"] > 0.5)[:, None]
-        age = i + at(vs["_cont_age0"], -t_time)
-        note = at(vs["_cont_note"], vs["_trig_note"])
-        vel = note_value("vol", vs["_cont_vol"], vs["_trig_vol"])
-        npan = note_value("pan", vs["_cont_pan"], vs["_trig_pan"])
-        # speed arrays carry the absolute multiplier (initial
-        # 2^((note-60)/12)); normalising by that makes freq_mult == 1
-        # exactly when unautomated
-        spd = note_value("spd", vs["_cont_spd"], vs["_trig_spd"])
-        freq_mult = spd / note_speed(note)
-        rel = at(vs["_cont_rel"], vs["_trig_rel"])
-        active = in_b | c_on
-
-        if self.glide_secs > 0.0:
-            # exponential-in-pitch glide from the voice's previous note: the
-            # continuing one (where it sounds) for the first trigger, the
-            # trigger before for each later one
-            gsamples = max(self.glide_secs * sr, 1.0)
-            prog = torch.clamp(age.to(f32) * recip32(gsamples), 0.0, 1.0)
-            cont_note = vs["_cont_note"]
-            prev = at(cont_note, torch.cat([cont_note[:, None],
-                                            vs["_trig_note"][:, :-1]], dim=1))
-            glides = in_b & (c_on | (slot > 1))
-            freq = note_to_hz(torch.where(glides, prev + (note - prev) * prog,
-                                          note))
-        else:
-            freq = note_to_hz(note)
-        return _Notes(note, age, vel, npan, rel, active, freq * freq_mult)
-
-    def _voices(self, state, p, vs, voice_no, notes: _Notes, lanes: int,
+    def _voices(self, state, p, notes: Notes, mod, voice_no, lanes: int,
                 ctx: BuildCtx):
         """The modulation matrix and the SynthDef over every voice row, then
         each voice's gain and pan, summed per lane: (new state, audio
         [L, ch, n])."""
-        from ..graph.engine import tree_map
         n = ctx.block_frames
         sr = ctx.sample_rate
-        nv = self.options.voices
         f32 = torch.float32
         note, age, vel, npan, rel, active, freq = notes
         gate = (active & (age.to(f32) < rel) & (age >= 0)).to(f32)
         mods = {}
-        if self.mod_config is not None:
-            src = eval_sources(build_source_specs(self.mod_config, p, sr), age,
-                               vel, note, rel, n,
-                               seed=(_SEED ^ (0x9E37 * voice_no))[:, None])
-            m = apply_matrix(src, vs["_mod_amt"], vs["_mod_bip"],
-                             source_polarity(self.mod_config))  # [V, T, n]
-            mods = {t: m[:, k] for k, t in enumerate(self.mod_config.targets)}
+        if mod is not None:
+            config, amounts, routed = mod
+            src = eval_sources(build_source_specs(config, p, sr), age, vel,
+                               note, rel, n, seed=voice_seeds(voice_no)[:, None])
+            m = apply_matrix(src, amounts, routed,
+                             source_polarity(config))  # [V, T, n]
+            mods = {t: m[:, k] for k, t in enumerate(config.targets)}
         sctx = SynthContext(
             freq=freq, gate=gate, velocity=vel, age=age, release_age=rel,
             sample_rate=sr, block_frames=n,
             params={q.id: p[q.id] for q in self.synth.params}, mods=mods)
-        synth_state, audio = self.synth.render(
-            tree_map(lambda a: a.flatten(0, 1), state["synth"]), sctx)
+        synth_state, audio = self.synth.render(state, sctx)
         if audio.dim() == 2:  # mono: every output channel
             audio = audio[:, None, :].expand(-1, ctx.channels, -1)
-        audio = audio.unflatten(0, (lanes, nv))  # [L, V, ch, n]
+        audio = audio.unflatten(0, (lanes, -1))  # [L, V, ch, n]
         g = p[VOLUME.id] * vel * active.to(f32)
         audio = audio * g.view(lanes, -1, 1, n)
         if ctx.channels >= 2:
@@ -324,6 +258,4 @@ class SynthGenerator(Generator):
             audio = torch.cat([audio[:, :, :1] * left.view(lanes, -1, 1, n),
                                audio[:, :, 1:2] * right.view(lanes, -1, 1, n),
                                audio[:, :, 2:]], dim=2)
-        return ({"synth": tree_map(lambda a: a.unflatten(0, (lanes, nv)),
-                                   synth_state)},
-                torch.sum(audio, dim=1))
+        return synth_state, torch.sum(audio, dim=1)

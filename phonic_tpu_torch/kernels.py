@@ -46,6 +46,8 @@ _SIGNATURES = {
                      + [_I] * 4 + [_P], _I),
     "phonic_reverb": ([_I] + [_P] * 14 + [_I] * 4 + [_P], _I),
     "phonic_chorus": ([_I] + [_P] * 6 + [_I] * 4 + [_P], _I),
+    "phonic_synth_voice": ([_I] + [_P] * 22, _I),
+    "phonic_synth_mix": ([_I] + [_P] * 8 + [_I] * 5 + [_P], _I),
     "phonic_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

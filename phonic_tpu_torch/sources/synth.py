@@ -77,12 +77,21 @@ class SynthDef:
     generator's shared parameters, src/generator/fundsp.rs:88-99): they
     become engine-smoothed per-block arrays in ``SynthContext.params``,
     settable at runtime and routable as modulation targets
-    (SynthGenerator.with_modulation)."""
+    (SynthGenerator.with_modulation).
+
+    ``kernel`` describes the voice for the hand-written synth kernels
+    (``ops/synthvoice.SubtractiveVoice``: its parameter ids, its amp AHDSR
+    and the ``render`` it describes), for a SynthDef whose ``render``
+    computes what they do: a SynthGenerator then renders it through them on
+    the card, and through their plain version on the CPU.  None (every
+    other SynthDef), or a description of another ``render``, keeps
+    ``render``."""
 
     init: Callable[[BuildCtx, int], dict]
     render: Callable[[dict, SynthContext], tuple]
     channels: int = 1
     params: tuple = ()
+    kernel: Optional[object] = None
 
 
 @dataclasses.dataclass

@@ -6,7 +6,9 @@ They keep the JAX package's names, arguments, FourCC parameters and
 defaults, written on the port's batched SynthDef protocol
 (sources/synth.py): each renders a bank of B voices at once, and sub3's
 resonant SVF runs all of them through one ``ops/filters.tpt_process``, one
-iir2 launch of B rows on the card.
+iir2 launch of B rows on the card.  sub3 also describes its voice
+(``SynthDef.kernel``): a SynthGenerator renders it through kernels 10, 2
+(iir2) and 11 on the card (ops/synthvoice.py).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..graph.nodes import BuildCtx
 from ..ops import ahdsr as ahdsr_ops
 from ..ops import consts, filters, osc
 from ..ops.precision import recip32
+from ..ops.synthvoice import SubtractiveVoice
 from ..params import ExponentialScaling, FloatParameter
 from ..sources.synth import SynthContext, SynthDef
 
@@ -83,6 +86,7 @@ def sub3(shape: float = 2.0, detune_cents: float = 7.0, cutoff: float = 2500.0,
     P_CUTOFF = FloatParameter("CUTF", "Cutoff", 20.0, 20000.0, cutoff,
                               unit="Hz", scaling=ExponentialScaling(2.5))
     P_RESO = FloatParameter("RESO", "Resonance", 0.0, 0.95, resonance)
+    envelope = (0.01, 0.0, 0.3, 0.6, 0.15)  # amp AHDSR
 
     def init(ctx: BuildCtx, batch: int):
         return {"phase": _zeros(ctx, batch, 3),
@@ -109,7 +113,7 @@ def sub3(shape: float = 2.0, detune_cents: float = 7.0, cutoff: float = 2500.0,
             mix = mix + osc.morph_osc(ph, shape_v, f, ctx.sample_rate)
             ends.append(end)
         mix = mix * recip32(3.0)
-        env = _env(ctx, 0.01, 0.0, 0.3, 0.6, 0.15)
+        env = _env(ctx, *envelope)
         # envelope also sweeps the filter cutoff
         cut = torch.clamp(cut_p * (0.2 + 0.8 * env), 20.0,
                           ctx.sample_rate / 2.0)
@@ -120,8 +124,13 @@ def sub3(shape: float = 2.0, detune_cents: float = 7.0, cutoff: float = 2500.0,
         return ({"phase": torch.stack(ends, dim=-1), "svf": svf},
                 filtered * env)
 
+    # a SynthGenerator renders this voice through kernels 10 and 11
+    # (ops/synthvoice.py), which compute what ``render`` does
     return SynthDef(init=init, render=render, channels=1,
-                    params=(P_SHAPE, P_DETUNE, P_CUTOFF, P_RESO))
+                    params=(P_SHAPE, P_DETUNE, P_CUTOFF, P_RESO),
+                    kernel=SubtractiveVoice(P_SHAPE.id, P_DETUNE.id,
+                                            P_CUTOFF.id, P_RESO.id, envelope,
+                                            render))
 
 
 def dx7(ratio: float = 2.0, index: float = 3.0) -> SynthDef:

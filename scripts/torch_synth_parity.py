@@ -62,7 +62,7 @@ def attribute():
     import torch
 
     import phonic_tpu.ops.osc as josc
-    import phonic_tpu_torch.generators.synth as psynth
+    import phonic_tpu_torch.ops.synthvoice as psynth
     from phonic_tpu_torch.ops.precision import recip32
 
     jax.config.update("jax_enable_x64", True)

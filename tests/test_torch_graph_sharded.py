@@ -504,5 +504,5 @@ def test_launchers_restore_the_callers_device():
         assert guards >= 1 if launches else guards == 0, src.name
         launchers += guards
     # ramp_read, the scans, the follower, the gate, the smoothers, the
-    # delay, the reverb, the chorus
-    assert launchers == 8
+    # delay, the reverb, the chorus, the synth voice and the synth mix
+    assert launchers == 10
