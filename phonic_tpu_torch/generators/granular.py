@@ -39,6 +39,12 @@ clamps.
 Deviation (as in the JAX package): the playhead's loop-entry latch is
 evaluated per chunk with a cumulative-entry approximation (fold once
 entered anywhere in the chunk).
+
+Each note that starts on a voice resets its pool where it starts, and the
+note before it triggers grains up to that sample, as upstream's voices do.
+The JAX package lowers one note start per voice and block: it renders the
+last start only, and a voice's earlier note triggers no grains from the
+block's start on.
 """
 
 from __future__ import annotations
@@ -164,33 +170,61 @@ def _col(x, dims: int, dtype=None):
     return x if x.dim() == 0 else x.reshape(x.shape + (1,) * dims)
 
 
-def _running_sum(start, steps):
+def _running_sum(start, steps, restart=None):
     """``start + cumsum(steps)`` along the last dimension, summed in float64
-    and rounded once to float32 (module docstring)."""
-    return (start.to(torch.float64)[..., None]
-            + torch.cumsum(steps.to(torch.float64), dim=-1)).to(torch.float32)
+    and rounded once to float32 (module docstring).  ``restart`` = (each
+    sample's latest note start, :func:`_latest_start`; the value there, a
+    number or per sample) begins the sum anew at each start, from that
+    value, the start's own step included."""
+    run = torch.cumsum(steps.to(torch.float64), dim=-1)
+    base = start.to(torch.float64)[..., None]
+    if restart is not None:
+        last, value = restart
+        at = last.clamp(min=0)
+        if isinstance(value, torch.Tensor):
+            value = torch.gather(value, -1, at)
+        since = torch.gather(run - steps.to(torch.float64), -1, at)
+        base = torch.where(last >= 0, value, base)
+        run = run - torch.where(last >= 0, since, 0.0)
+    return (base + run).to(torch.float32)
 
 
-def playhead_trajectory(playhead0, in_loop0, steps, loop_range):
+def _latest_start(starts):
+    """Each sample's latest note start at or before it, as an index into
+    the chunk (-1 where none), of ``starts`` bool [V, n]."""
+    ii = torch.arange(starts.shape[-1], device=starts.device)
+    return torch.cummax(torch.where(starts, ii, -1), dim=-1).values
+
+
+def playhead_trajectory(playhead0, in_loop0, steps, loop_range,
+                        restart=None):
     """Analytic playhead with the loop-entry latch (granular.rs:605-640).
 
     playhead0/in_loop0: [...] per voice; steps: [..., n] per-sample
     normalized increments (already masked to the active region);
     loop_range: (on, start, end) scalars, 0-d tensors or ``[V]`` per
-    voice.  Returns (playhead [..., n], entered [..., n]).
+    voice; restart: (latest start, position) as :func:`_running_sum`
+    takes it, where the playhead begins anew, out of the loop.
+    Returns (playhead [..., n], entered [..., n]).
 
     As in the JAX package, ``entered`` latches on the prefix of the RAW
-    (unfolded) trajectory's loop membership, and the folded branch folds
-    that raw trajectory."""
-    ph_raw = _running_sum(playhead0, steps)
+    (unfolded) trajectory's loop membership (since the latest start), and
+    the folded branch folds that raw trajectory."""
+    ph_raw = _running_sum(playhead0, steps, restart)
     loop_on = _col(loop_range[0], 1) > 0.5
     ls = _col(loop_range[1], 1, torch.float32)
     le = _col(loop_range[2], 1, torch.float32)
     ll = torch.clamp(le - ls, min=1e-9)
     wrapped = torch.remainder(ph_raw, 1.0)
     in_range = (wrapped >= ls) & (wrapped < le) & loop_on
-    entered = ((torch.cumsum(in_range.to(torch.int32), dim=-1) > 0)
-               | (in_loop0 > 0.5)[..., None]) & loop_on
+    count = torch.cumsum(in_range.to(torch.int32), dim=-1)
+    was_in = (in_loop0 > 0.5)[..., None]
+    if restart is not None:
+        last = restart[0]
+        count = count - torch.where(last >= 0, torch.gather(
+            count - in_range.to(torch.int32), -1, last.clamp(min=0)), 0)
+        was_in = was_in & (last < 0)
+    entered = ((count > 0) | was_in) & loop_on
     folded = ls + torch.remainder(ph_raw - ls, ll)
     return torch.where(entered, folded, wrapped), entered
 
@@ -236,7 +270,10 @@ def granular_voice_alloc(
     sr: int,
     frames: int,  # source length in frames (positions fold on this circle)
     loop_range,  # (on, start_norm, end_norm) scalars or [V]; on <= 0.5 = off
-    note_start,  # int [V]: global frame of the current note-on (NEVER: none)
+    # int [V, n]: global frame at which the note that holds the voice at
+    # each sample started (NEVER: none); or [V], one note that holds the
+    # voice from its start on
+    note_start,
     held,  # bool [V, n]: may trigger new grains (note held, pre-release)
     speed,  # [V, n]: effective voice speed (note * transpose * finetune)
     vol,  # [V, n]: effective voice volume (base * velocity)
@@ -257,7 +294,14 @@ def granular_voice_alloc(
     ``n`` frames, up to (but excluding) the source read.  Returns
     ``(new_state, fidx [V, POOL, n], g [V, POOL, n])``: per-grain read
     positions in source frames and the per-sample grain weights (window
-    envelope x grain volume, gated by activity)."""
+    envelope x grain volume, gated by activity).
+
+    Every note that starts inside the chunk (a sample whose ``note_start``
+    is its own frame) resets the voice's pool bookkeeping there, as
+    upstream's start() does: the trigger phase arms at 1.0 (a grain at the
+    start), the playhead moves to the position and leaves the loop; grains
+    of earlier notes are cut from the start on.  A chunk takes at most
+    ``max_triggers`` candidates per voice, the earliest."""
     dev = held.device
     v = held.shape[0]
     f32 = torch.float32
@@ -269,29 +313,32 @@ def granular_voice_alloc(
     gframes = f0_col + ii  # [n] or [V, n]
     gframes3 = gframes[:, None, :] if per_row else gframes
     note_start = torch.as_tensor(note_start, device=dev).to(torch.int64)
+    if note_start.dim() == 1:  # one note from its start on
+        note_start = torch.where(gframes >= note_start[:, None],
+                                 note_start[:, None], NEVER)
     seed = torch.as_tensor(seed, device=dev).to(torch.int64).expand(v)
 
     def per_voice(x):
         return torch.as_tensor(x, device=dev).expand(v, n)
 
-    # --- note (re)start: reset pool bookkeeping at note_start -------------
-    fresh = note_start > frame0 - 1  # note started at/after this chunk start
-    restart_here = (note_start >= frame0) & (note_start < frame0 + n)
-    start_idx = torch.clamp(note_start - frame0, 0, n - 1)
-    trigger_phase = torch.where(restart_here | (note_start == frame0), 1.0,
-                                state["trigger_phase"])
-    playhead0 = torch.where(restart_here, _at(per_voice(position), start_idx),
-                            state["playhead"])
-    in_loop0 = torch.where(restart_here, 0.0, state["in_loop"])
+    # --- note (re)starts: reset pool bookkeeping at each start -------------
+    active_after_start = gframes >= note_start  # a note holds the voice
+    starts = note_start == gframes  # a note starts at the sample
+    first_start = note_start.amin(dim=1)  # the chunk's first note's start
+    fresh = first_start > frame0 - 1  # it started at/after the chunk start
+    trigger_phase = state["trigger_phase"]
+    # the trigger phase and the playhead restart at every start, from the
+    # armed 1.0 and the position there
+    last_start = _latest_start(starts)
 
     # --- playhead trajectory (granular.rs:605-640) ------------------------
     # constant divisors as XLA evaluates them (ops/precision.recip32)
     inv_frames = recip32(frames)
     step_inc = step * (1.0 + speed_mod) * inv_frames
-    active_after_start = gframes >= note_start[:, None]
     playhead, entered = playhead_trajectory(
-        playhead0, in_loop0, torch.where(active_after_start, step_inc, 0.0),
-        loop_range)
+        state["playhead"], state["in_loop"],
+        torch.where(active_after_start, step_inc, 0.0), loop_range,
+        restart=(last_start, per_voice(position)))
     ls = torch.as_tensor(loop_range[1], dtype=f32)
     ll = torch.clamp(torch.as_tensor(loop_range[2], dtype=f32) - ls, min=1e-9)
     base_position = torch.where(step == 0.0, position, playhead) + pos_mod
@@ -299,17 +346,24 @@ def granular_voice_alloc(
     # --- cloud-mode trigger times -----------------------------------------
     dens = torch.clamp(density, 1.0, 100.0)
     tp = _running_sum(trigger_phase,
-                      torch.where(active_after_start, dens * recip32(sr), 0.0))
-    tp_prev = torch.cat([trigger_phase[:, None], tp[:, :-1]], dim=1)
+                      torch.where(active_after_start, dens * recip32(sr), 0.0),
+                      (last_start, 1.0))
+    tp_prev = torch.where(starts, 1.0, torch.cat(
+        [trigger_phase[:, None], tp[:, :-1]], dim=1))
     # start() arms trigger_phase at exactly 1.0 so the first held sample
-    # fires immediately (granular.rs:484): that never crosses a floor step
-    armed = ((ii == torch.clamp(note_start - frame0, min=0)[:, None])
-             & (trigger_phase >= 1.0)[:, None])
+    # fires immediately (granular.rs:484): that never crosses a floor step;
+    # a phase still armed from an earlier chunk fires at the chunk's start
+    armed = starts | ((ii == 0) & (trigger_phase >= 1.0)[:, None])
     trig_mask = (((torch.floor(tp) > torch.floor(tp_prev)) | armed) & held
                  & active_after_start)
     cloud_times = torch.topk(torch.where(trig_mask, ii, n),
                              min(max_triggers, n), dim=1, largest=False).values
     new_trigger_phase = tp[:, -1] - torch.floor(tp[:, -1])
+    # the last note's phase stays where it was (armed, after a start) until
+    # the note is held
+    last_note = ii >= last_start[:, -1:]
+    last_held = (held & last_note).any(dim=-1)
+    last_phase = torch.where(last_start[:, -1] >= 0, 1.0, trigger_phase)
 
     is_seq = torch.as_tensor(overlap_mode, device=dev) == 1
     cf_points = _crossfade_table(dev)
@@ -327,9 +381,21 @@ def granular_voice_alloc(
     floats = torch.stack([state[k] for k in FLOAT_SLOTS], dim=1)  # [V, 6, P]
     rng = state["rng_count"].to(torch.int64)
     seq_next = torch.where((state["seq_next"] < frame0) | fresh,
-                           torch.maximum(note_start, frame0) if per_row
-                           else torch.clamp(note_start, min=frame0),
+                           torch.maximum(first_start, frame0) if per_row
+                           else torch.clamp(first_start, min=frame0),
                            state["seq_next"].to(torch.int64))
+    # sequential: a note start begins the chain of grains anew.  Each
+    # sample's next start at or after it (n: none), and where a chain
+    # that reaches the sample goes on: there, if the note is held, else at
+    # the next start after it (a note held no more in the chunk triggers
+    # nothing more); ``passed`` is the first sample the chain has not
+    # passed
+    next_start = torch.flip(torch.cummin(torch.flip(torch.where(
+        starts, ii, n), [1]), dim=1).values, [1])
+    next_start = torch.cat([next_start, next_start.new_full((v, 1), n)], 1)
+    resume = torch.where(per_voice(held), ii, next_start[:, 1:])
+    resume = torch.cat([resume, next_start[:, -1:]], 1)
+    passed = torch.zeros(v, dtype=torch.int64, device=dev)
     # a step's 7 draws hash (seed, rng * 8 + i), and rng advances by at most
     # one per step: draw every counter the chunk can reach at once, and
     # let each step pick its row
@@ -341,7 +407,10 @@ def granular_voice_alloc(
         # JAX clamps cloud_times[k] where a chunk has fewer samples than
         # candidates
         t_cloud = cloud_times[:, min(k, cloud_times.shape[1] - 1)]
-        t_seq = torch.clamp(seq_next - frame0, 0, n)
+        t_seq = torch.minimum(
+            _at(resume, torch.clamp(seq_next - frame0, 0, n)),
+            _at(next_start, passed))
+        passed = torch.where(is_seq & (t_seq < n), t_seq + 1, passed)
         t = torch.where(is_seq, t_seq, t_cloud)
         t_safe = torch.clamp(t, max=n - 1)
         p = _at(picks, t_safe)  # [V, len(_PICK)]
@@ -350,7 +419,8 @@ def granular_voice_alloc(
             return p[:, col[name]]
 
         valid = (t < n) & torch.where(
-            is_seq, (pk("held") > 0.5) & (frame0 + t_safe >= note_start), True)
+            is_seq, (pk("held") > 0.5) & _at(active_after_start, t_safe),
+            True)
         gt = frame0 + t_safe  # global trigger frame
 
         draw = torch.gather(draws, 1, (rng - rng0)[:, None, None].expand(
@@ -406,16 +476,15 @@ def granular_voice_alloc(
         cf = cf_points[torch.clamp(wm, 0, 7)]
         seq_step = torch.clamp((cf / winc).to(torch.int64), min=1)
         seq_next = torch.where(is_seq & do, gt + seq_step,
-                               torch.where(is_seq & valid, seq_next + 1,
-                                           seq_next))
+                               torch.where(is_seq & valid, gt + 1, seq_next))
 
     # --- render all grain slots [V, P, n] ----------------------------------
     g_trig, g_dur, g_wmode = ints.unbind(1)
     g_pos0, g_inc, g_winc, g_vol, g_pan, g_loop = floats.unbind(1)
     local = gframes3 - g_trig[..., None]
     g_active = (local >= 0) & (local < g_dur[..., None])
-    # hard-cut grains of the previous note at a steal (voice reset)
-    ns = note_start[:, None, None]
+    # hard-cut grains of an earlier note at a start (voice reset)
+    ns = note_start[:, None, :]
     g_active &= ~((g_trig[..., None] < ns) & (gframes3 >= ns))
 
     localf = local.to(f32)
@@ -433,8 +502,8 @@ def granular_voice_alloc(
     new_state = {k: ints[:, i] for i, k in enumerate(INT_SLOTS)}
     new_state.update({k: floats[:, i] for i, k in enumerate(FLOAT_SLOTS)})
     new_state.update({
-        "trigger_phase": torch.where(held.any(dim=-1), new_trigger_phase,
-                                     trigger_phase),
+        "trigger_phase": torch.where(last_held, new_trigger_phase,
+                                     last_phase),
         "playhead": playhead[:, -1],
         "in_loop": entered[:, -1].to(f32),
         "rng_count": rng.to(torch.int32),

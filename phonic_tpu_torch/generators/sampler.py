@@ -26,16 +26,18 @@ pool reads every voice of every sampler in one ``ramp_read``.
 Known deviation (as in the JAX package): AHDSR parameter changes re-shape
 the envelope of already sounding notes analytically.  Where a voice starts
 several notes in one block the port renders each of them, as upstream
-does, and so does its synth generator, which borrows this lowering; the
-JAX package renders only the last (its lowering keeps one trigger per
-voice), and so does this port's granular sampler.
+does: the sampled and the granular sampler, and the synth generator, which
+borrows this lowering.  The JAX package renders only the last (its
+lowering keeps one trigger per voice).
 
 Granular playback (``with_granular_playback``) renders each voice as a
 pool of grains (generators/granular.py) with the modulation matrix
 (modulation/) feeding the 7 granular targets.  A granular sampler is a
-generator pool of its own; ``process_granular`` allocates the grains of
-every voice over 2048-frame chunks, then reads every grain of the block in
-one ``ramp_read`` of the circularly extended mono buffer.
+generator pool of its own; ``process_granular`` takes each sample's note
+from the trigger slots, allocates the grains of every voice over
+2048-frame chunks (each note start resets the voice's pool there), then
+reads every grain of the block in one ``ramp_read`` of the circularly
+extended mono buffer.
 """
 
 from __future__ import annotations
@@ -103,6 +105,33 @@ def voice_rows(params, voices, nv: int):
     vs = {k: x.flatten(0, 1) if k.startswith(VOICE_KEYS)
           else x.repeat_interleave(nv, 0) for k, x in voices.items()}
     return p, vs
+
+
+def note_of(t_time, n: int):
+    """Each sample's note among a voice's continuing note and its trigger
+    slots: the number of slots at or before the sample (0 the continuing
+    note, j + 1 slot j's).  ``t_time`` [..., K] sorted, unused slots at
+    ``n``; returns [..., n]."""
+    k = t_time.shape[-1]
+    rows = t_time.numel() // k
+    ii = torch.arange(n, dtype=t_time.dtype, device=t_time.device)
+    return torch.searchsorted(
+        t_time.reshape(rows, k).contiguous(), ii.expand(rows, n).contiguous(),
+        right=True).view(t_time.shape[:-1] + (n,))
+
+
+def per_note(cont, trig):
+    """A note quantity's table [..., K+1]: column 0 the continuing note's
+    ``cont`` [...], column j + 1 trigger slot j's ``trig`` [..., K]."""
+    return torch.cat([cont[..., None], trig], dim=-1)
+
+
+def note_envelope(env_p, ages, rel, rels, notes):
+    """The voice AHDSR of each sample's note: ``ages`` and ``rel`` (its
+    note-off age) per sample, ``rels`` the note-off table [..., K+1] and
+    ``notes`` each sample's note (:func:`note_of`)."""
+    level = ahdsr_ops.release_level(env_p, 1.0, rels).gather(-1, notes)
+    return ahdsr_ops.ahdsr_values(env_p, 1.0, ages, rel, level)
 
 
 # granular parameters (sampler.rs:219-296)
@@ -415,20 +444,15 @@ class Sampler(Generator):
         ratio = (self.buffer.sample_rate / self._sr) if include_ratio else 1.0
         return pitch * plan.max_speed * ratio
 
-    def _trigger_slots(self) -> bool:
-        """Whether the lowering gives every note that starts on a voice in
-        a block a trigger slot (``_trig_*`` [V, K]), or only the last
-        (``_trig_*`` [V]): the granular voices render one trigger; the
-        synth generator's voices, which borrow this, every one."""
-        return self.granular is None
-
     def lower_block_inputs(self, block_start: int, block_len: int):
         """The block's voice arrays: each voice's continuing note
-        (``_cont_*`` [V]) and the notes that start on it in the block, in
+        (``_cont_*`` [V]) and every note that starts on it in the block, in
         trigger slots ``_trig_*`` [V, K] sorted by time (unused slots at
-        ``block_len``; K a power of two), or, for the granular sampler,
-        the last of them (``_trig_*`` [V], as the JAX package lowers).  ``_smax`` is the step bound 2**bucket (monotone
-        over the program's life), the JAX package's read-window tag."""
+        ``block_len``; K a power of two), for the sampled and the granular
+        sampler alike, and for the synth generator, which borrows this (the
+        JAX package lowers the last start only, ``_trig_*`` [V]).
+        ``_smax`` is the step bound 2**bucket (monotone over the program's
+        life), the JAX package's read-window tag."""
         if not hasattr(self, "_sr"):
             raise RuntimeError(
                 f"{type(self).__name__} lowered before prepare(); the node "
@@ -442,13 +466,8 @@ class Sampler(Generator):
     def _lower_notes(self, plan: VoicePlan, notes, block_start: int,
                      block_len: int) -> dict:
         v = self.options.voices
-        slots = self._trigger_slots()
-        if slots:
-            k = max((len(trigs) for _, trigs in notes), default=0)
-            k = 1 << max(k - 1, 0).bit_length()
-            shape = (v, k)
-        else:
-            shape = (v,)
+        k = max((len(trigs) for _, trigs in notes), default=0)
+        shape = (v, 1 << max(k - 1, 0).bit_length())
         out = {
             "_cont_active": np.zeros(v, np.float32),
             "_cont_note": np.full(v, 60.0, np.float32),
@@ -507,8 +526,7 @@ class Sampler(Generator):
             self._lower_read_inputs(out, plan, block_start)
         segments = 0
         for vi, (cont, trigs) in enumerate(notes):
-            segments += (cont is not None) + (len(trigs) if slots
-                                              else min(len(trigs), 1))
+            segments += (cont is not None) + len(trigs)
             if cont is not None:
                 out["_cont_active"][vi] = 1.0
                 out["_cont_note"][vi] = cont.note
@@ -522,15 +540,9 @@ class Sampler(Generator):
                 _lower_auto(cont, "ca", vi)
                 if cont.release is not math.inf:
                     out["_cont_rel"][vi] = cont.release - cont.start
-                # a cut without retrigger in this block: emulate via trig_time
-                if (not slots and not trigs and cont.cut is not math.inf
-                        and cont.cut < block_start + block_len):
-                    out["_trig_time"][vi] = int(cont.cut) - block_start
-            if slots:
-                for j, seg in enumerate(trigs):
-                    _lower_trig(seg, (vi, j))
-            elif trigs:
-                _lower_trig(trigs[-1], vi)  # one trigger: keep the last
+            # a cut is where the note that stole the voice starts: a slot
+            for j, seg in enumerate(trigs):
+                _lower_trig(seg, (vi, j))
         tracing.count("generator.segments", segments)
         return out
 
@@ -607,16 +619,10 @@ class Sampler(Generator):
         t_time = voices["_trig_time"]  # [G, V, K], sorted, unused slots at n
         k = t_time.shape[-1]
 
-        # each sample's note: the number of triggers at or before it
-        note_of = torch.searchsorted(
-            t_time.reshape(g * v, k), ii.expand(g * v, n).contiguous(),
-            right=True).view(g, v, n)
-
-        def per_note(cont, trig):  # [G, V], [G, V, K] -> [G, V, K+1]
-            return torch.cat([cont[..., None], trig], dim=-1)
+        notes = note_of(t_time, n)  # [G, V, n]
 
         def at(table):  # [G, V, K+1] -> each sample's note's value [G, V, n]
-            return table.gather(-1, note_of)
+            return table.gather(-1, notes)
 
         def per_sampler(x):  # [G] -> [G, 1, 1]
             return x[:, None, None]
@@ -642,13 +648,13 @@ class Sampler(Generator):
             both = torch.cat([knots("ca", nm, cont, g * v).view(g, v, 1, n),
                               knots("ta", nm, trig, g * v * k).view(g, v, k, n)],
                              dim=2)
-            return both.gather(2, note_of[:, :, None]).squeeze(2)
+            return both.gather(2, notes[:, :, None]).squeeze(2)
 
         # the read positions: the steps' running sum in float64, rounded
         # once, so that it does not depend on the device's order of
         # summation; the continuing note goes on from the carried position,
         # a triggered note starts at 0
-        sounding = (note_of > 0) | (voices["_cont_active"] > 0.5)[..., None]
+        sounding = (notes > 0) | (voices["_cont_active"] > 0.5)[..., None]
         spd = note_value("spd", voices["_cont_spd"], voices["_trig_spd"])
         # the JAX package's windowed reads need steps <= smax (never binds
         # in-bucket); clamping here keeps the positions equal
@@ -662,7 +668,7 @@ class Sampler(Generator):
         since = at(origin)
         walked = (before - since).to(torch.float32)
         carried = state["base"].to(torch.float32) + state["frac"]
-        cont = note_of == 0
+        cont = notes == 0
         pos = torch.where(cont, carried[..., None] + walked, walked)
         end_pos = torch.where(cont[..., -1], pos[..., -1] + steps[..., -1],
                               (run[..., -1] - since[..., -1]).to(torch.float32))
@@ -689,8 +695,7 @@ class Sampler(Generator):
             env_p = ahdsr_ops.ahdsr_params(
                 ctx.sample_rate, *(per_sampler(params[p.id][:, 0]) for p in (
                     ENV_ATTACK, ENV_HOLD, ENV_DECAY, ENV_SUSTAIN, ENV_RELEASE)))
-            level = at(ahdsr_ops.release_level(env_p, 1.0, rels))
-            env = ahdsr_ops.ahdsr_values(env_p, 1.0, ages, rel, level)
+            env = note_envelope(env_p, ages, rel, rels, notes)
         else:
             # one-shot: the de-click fade after note-off
             fade_log1m = math.log1p(-(1.0 - math.exp(
@@ -729,7 +734,11 @@ class Sampler(Generator):
         The voices' note logic and modulation run over ``[V, n]`` for one
         instance and over ``[L*V, n]`` (lane-major) for several, the
         per-sample parameters then per voice; the grain pools of every
-        instance run over ``[L*V, ...]``.  The grain pools allocate chunk by chunk (the JAX
+        instance run over ``[L*V, ...]``.  Each sample's note comes from
+        the voice's trigger slots (``_trig_*`` [V, K]) as in ``process``,
+        and with it the global frame the note started at, which
+        ``granular_voice_alloc`` resets the pool at.  The grain pools
+        allocate chunk by chunk (the JAX
         package's hoisted-read formulation, sampler.py:1029-1083): each
         chunk's read positions and weights go into ``[V*POOL, n]`` tensors,
         and since the reads never feed back into allocation, every grain of
@@ -773,101 +782,110 @@ class Sampler(Generator):
         pitch = torch.exp2((p[TRANSPOSE.id] * recip32(12.0)
                             + p[FINETUNE.id] * recip32(1200.0)).to(torch.float64)
                            ).to(f32)
-
-        # --- the voices' note logic over [V, n] (a steal switches a voice
-        # from its continuing note to the retriggered one at _trig_time) ---
-        t_time = vs["_trig_time"].to(torch.int64)
-        has_trig = (t_time < n) & (vs["_trig_vol"] > 0.0)
-        sel = (i >= t_time[:, None]) & has_trig[:, None]
-        c_on = vs["_cont_active"] > 0.5
-        c_age0 = vs["_cont_age0"].to(torch.int64)
-
-        def note_value(trig, cont):
-            return torch.where(sel, trig[:, None], cont[:, None])
-
-        age = torch.where(sel, i - t_time[:, None], c_age0[:, None] + i)
-        note = note_value(vs["_trig_note"], vs["_cont_note"])
-        nvol = note_value(vs["_trig_vol"], vs["_cont_vol"] * vs["_cont_active"])
-        npan = note_value(vs["_trig_pan"], vs["_cont_pan"])
-        rel = note_value(vs["_trig_rel"], vs["_cont_rel"])
-        active = sel | c_on[:, None]
-        held = active & (age.to(f32) < rel) & (nvol > 0.0)
-        note_start = torch.where(has_trig, frame0 + t_time,
-                                 torch.where(c_on, frame0 - c_age0, NEVER))
-        # per-note speed automation applies at block granularity for grains
-        # (the pool re-reads speed per trigger, granular.rs:504)
-        speed = pitch * note_value(vs["_trig_spd"], vs["_cont_spd"])
-
-        # modulation sources and targets of every voice
-        src = eval_sources(build_source_specs(self.mod_config, p, sr), age,
-                           nvol, note, rel, n,
-                           seed=(self.seed ^ (0x9E37 * voice_no))[:, None])
-        mods = apply_matrix(src, vs["_mod_amt"], vs["_mod_bip"],
-                            source_polarity(self.mod_config))  # [.., 7, n]
-        per_sample = dict(
-            held=held, speed=speed, vol=p[VOLUME.id] * nvol,
-            pan=torch.clamp(p[PANNING.id] + npan, -1.0, 1.0),
-            size_ms=p[GRAIN_SIZE.id] * (1.0 + mods[:, 0]),
-            density=p[GRAIN_DENSITY.id] * (1.0 + mods[:, 1]),
-            variation=p[GRAIN_VARIATION.id] + mods[:, 2],
-            spray=p[GRAIN_SPRAY.id] + mods[:, 3],
-            pan_spread=p[GRAIN_PAN_SPREAD.id] + mods[:, 4],
-            position=p[GRAIN_POSITION.id], pos_mod=mods[:, 5],
-            step=p[GRAIN_STEP.id], speed_mod=mods[:, 6],
-            window_mode=p[GRAIN_WINDOW.id].to(torch.int64),
-            direction=p[GRAIN_DIRECTION.id].to(torch.int64),
-        )
-
-
-        # --- allocation, chunk by chunk ------------------------------------
+        t_time = vs["_trig_time"].to(torch.int64)  # [R, K], sorted
         cn = (_GRANULAR_CHUNK if n > _GRANULAR_CHUNK and n % _GRANULAR_CHUNK == 0
               else n)
-        alloc = dict(
-            n=cn, sr=sr, frames=frames, loop_range=loop_norm,
-            note_start=note_start,
-            overlap_mode=p[GRAIN_OVERLAP.id][..., 0].to(torch.int64),
-            window_table=window_table(dev),
-            seed=self.seed ^ (voice_no * 0x51ED),
-            max_triggers=int(math.ceil(100.0 * cn / sr)) + 2,
-            max_read_speed=eff_mrs)
-        grains = {k: x.flatten(0, 1) for k, x in state["grains"].items()}
-        positions = torch.empty((lv, POOL_SIZE, n), dtype=f32, device=dev)
-        weights = torch.empty_like(positions)
-        pans = []
-        for t0 in range(0, n, cn):
-            grains, fidx, g = granular_voice_alloc(
-                grains, frame0=frame0 + t0, **alloc,
-                **{k: x[..., t0:t0 + cn] for k, x in per_sample.items()})
-            # the read's table is the source extended by one frame each side
-            torch.add(fidx, 1.0, out=positions[..., t0:t0 + cn])
-            weights[..., t0:t0 + cn] = g
-            pans.append(grains["g_pan"])
+        max_triggers = int(math.ceil(100.0 * cn / sr)) + 2
+        tracing.count("granular.trigger_slots", t_time.numel())
+        tracing.count("granular.alloc_steps", (n // cn) * max_triggers)
 
-        # --- every grain of the block in one read, then the mix -------------
-        s = read(positions.view(lv * POOL_SIZE, n)).view(lv, POOL_SIZE, n)
-        del positions
-        chunks = n // cn
+        with tracing.span("granular.notes"):
+            # --- the voices' note logic over [R, n]: each voice plays its
+            # continuing note until its first trigger slot, then each
+            # triggered note until the next (a [R, K+1] table per note
+            # quantity, column 0 the continuing note, as ``process``) ---
+            notes = note_of(t_time, n)  # [R, n]
+            c_on = vs["_cont_active"] > 0.5
+            c_age0 = vs["_cont_age0"].to(torch.int64)
 
-        def by_chunk(x):  # [L*V, P, n] -> [L*V, chunks, P, cn]
-            return x.view(lv, POOL_SIZE, chunks, cn).transpose(1, 2)
+            def note_value(cont, trig):  # each sample's note's value [R, n]
+                return per_note(cont, trig).gather(-1, notes)
 
-        audio = grain_mix(by_chunk(s), by_chunk(weights),
-                          torch.stack(pans, dim=1))  # [L*V, chunks, 2, cn]
-        del s, weights
-        audio = audio.transpose(1, 2).reshape(lv, 2, n)
+            age = i + note_value(c_age0, -t_time)
+            note = note_value(vs["_cont_note"], vs["_trig_note"])
+            nvol = note_value(vs["_cont_vol"] * vs["_cont_active"],
+                              vs["_trig_vol"])
+            npan = note_value(vs["_cont_pan"], vs["_trig_pan"])
+            rels = per_note(vs["_cont_rel"], vs["_trig_rel"])
+            rel = rels.gather(-1, notes)
+            active = (notes > 0) | c_on[:, None]
+            held = active & (age.to(f32) < rel) & (nvol > 0.0)
+            # the global frame each sample's note started at (NEVER: none)
+            f0 = frame0[:, None] if isinstance(frame0, torch.Tensor) else frame0
+            cont_start = torch.where(c_on[:, None], f0 - c_age0[:, None],
+                                     NEVER)[:, 0]
+            note_start = note_value(cont_start, f0 + t_time)
+            # per-note speed automation applies at block granularity for
+            # grains (the pool re-reads speed per trigger, granular.rs:504)
+            speed = pitch * note_value(vs["_cont_spd"], vs["_trig_spd"])
 
-        # voice-level AHDSR after the grain mix (voice.rs:470-486)
-        if self.envelope is not None:
-            env_p = ahdsr_ops.ahdsr_params(sr, *(first(p[q.id]) for q in (
-                ENV_ATTACK, ENV_HOLD, ENV_DECAY, ENV_SUSTAIN, ENV_RELEASE)))
-            env_a = ahdsr_ops.ahdsr_block(env_p, 1.0, c_age0[:, None],
-                                          vs["_cont_rel"][:, None], n)
-            env_b = ahdsr_ops.ahdsr_block(env_p, 1.0, -t_time[:, None],
-                                          vs["_trig_rel"][:, None], n)
-            env = torch.where(sel, env_b, env_a * c_on.to(f32)[:, None])
-        else:
-            env = active.to(f32)
-        mix = (audio * env[:, None, :]).view(lanes, nv, 2, n).sum(dim=1)
+            # modulation sources and targets of every voice
+            src = eval_sources(build_source_specs(self.mod_config, p, sr), age,
+                               nvol, note, rel, n,
+                               seed=(self.seed ^ (0x9E37 * voice_no))[:, None])
+            mods = apply_matrix(src, vs["_mod_amt"], vs["_mod_bip"],
+                                source_polarity(self.mod_config))  # [.., 7, n]
+            per_sample = dict(
+                held=held, speed=speed, vol=p[VOLUME.id] * nvol,
+                note_start=note_start,
+                pan=torch.clamp(p[PANNING.id] + npan, -1.0, 1.0),
+                size_ms=p[GRAIN_SIZE.id] * (1.0 + mods[:, 0]),
+                density=p[GRAIN_DENSITY.id] * (1.0 + mods[:, 1]),
+                variation=p[GRAIN_VARIATION.id] + mods[:, 2],
+                spray=p[GRAIN_SPRAY.id] + mods[:, 3],
+                pan_spread=p[GRAIN_PAN_SPREAD.id] + mods[:, 4],
+                position=p[GRAIN_POSITION.id], pos_mod=mods[:, 5],
+                step=p[GRAIN_STEP.id], speed_mod=mods[:, 6],
+                window_mode=p[GRAIN_WINDOW.id].to(torch.int64),
+                direction=p[GRAIN_DIRECTION.id].to(torch.int64),
+            )
+
+        # --- allocation, chunk by chunk ------------------------------------
+        with tracing.span("granular.alloc"):
+            alloc = dict(
+                n=cn, sr=sr, frames=frames, loop_range=loop_norm,
+                overlap_mode=p[GRAIN_OVERLAP.id][..., 0].to(torch.int64),
+                window_table=window_table(dev),
+                seed=self.seed ^ (voice_no * 0x51ED),
+                max_triggers=max_triggers, max_read_speed=eff_mrs)
+            grains = {k: x.flatten(0, 1) for k, x in state["grains"].items()}
+            positions = torch.empty((lv, POOL_SIZE, n), dtype=f32, device=dev)
+            weights = torch.empty_like(positions)
+            pans = []
+            for t0 in range(0, n, cn):
+                grains, fidx, g = granular_voice_alloc(
+                    grains, frame0=frame0 + t0, **alloc,
+                    **{k: x[..., t0:t0 + cn] for k, x in per_sample.items()})
+                # the read's table is the source extended by one frame each
+                # side
+                torch.add(fidx, 1.0, out=positions[..., t0:t0 + cn])
+                weights[..., t0:t0 + cn] = g
+                pans.append(grains["g_pan"])
+
+        with tracing.span("granular.mix"):
+            # --- every grain of the block in one read, then the mix ---------
+            s = read(positions.view(lv * POOL_SIZE, n)).view(lv, POOL_SIZE, n)
+            del positions
+            chunks = n // cn
+
+            def by_chunk(x):  # [L*V, P, n] -> [L*V, chunks, P, cn]
+                return x.view(lv, POOL_SIZE, chunks, cn).transpose(1, 2)
+
+            audio = grain_mix(by_chunk(s), by_chunk(weights),
+                              torch.stack(pans, dim=1))  # [L*V, chunks, 2, cn]
+            del s, weights
+            audio = audio.transpose(1, 2).reshape(lv, 2, n)
+
+            # voice-level AHDSR after the grain mix (voice.rs:470-486), each
+            # sample's note's
+            if self.envelope is not None:
+                env_p = ahdsr_ops.ahdsr_params(sr, *(first(p[q.id]) for q in (
+                    ENV_ATTACK, ENV_HOLD, ENV_DECAY, ENV_SUSTAIN, ENV_RELEASE)))
+                env = note_envelope(env_p, age, rel, rels, notes) \
+                    * active.to(f32)
+            else:
+                env = active.to(f32)
+            mix = (audio * env[:, None, :]).view(lanes, nv, 2, n).sum(dim=1)
         if ctx.channels == 1:
             mix = ((mix[:, 0] + mix[:, 1]) * 0.5)[:, None]
         elif ctx.channels > 2:

@@ -142,7 +142,6 @@ class SynthGenerator(Generator):
     # trigger slot for every note that starts on a voice in a block
     _voice_plan = Sampler._voice_plan
     _lower_notes = Sampler._lower_notes
-    _trigger_slots = Sampler._trigger_slots
     duration_frames = Sampler.duration_frames
     prepare = Sampler.prepare
 

@@ -50,7 +50,9 @@ from phonic_tpu.generators.base import GeneratorPlaybackOptions as JOptions
 from phonic_tpu.modulation import matrix as jmatrix
 from phonic_tpu_torch.convert import state_from_jax
 from phonic_tpu_torch.generators import granular as pgran
+from phonic_tpu_torch.generators import sampler as psampler
 from phonic_tpu_torch.modulation import matrix as pmatrix
+from one_trigger import one_trigger
 
 SR = 48000
 FRAMES = 8192  # a power of two: dyadic playhead steps stay exact
@@ -372,10 +374,25 @@ def _close(got, want, bound=DB90, min_peak=0.05):
     assert np.abs(got - want).max() <= bound * peak
 
 
+def _starts_per_voice(case) -> int:
+    """The most notes that start on one voice in one block of ``case``'s
+    first two blocks."""
+    _, _, _, ps = _programs(case)
+    n = BLOCKS[case]
+    return max(int((ps.lower_block_inputs(b * n, n)["_trig_time"] < n)
+                   .sum(axis=1).max()) for b in range(2))
+
+
 @pytest.mark.parametrize("case", sorted(BLOCKS))
-def test_render_matches_jax(case):
+def test_render_matches_jax(case, monkeypatch):
     """Two blocks stepped in both packages; the cloud case clears a routing
-    between them (a change of the lowered matrix, no rebuild)."""
+    between them (a change of the lowered matrix, no rebuild).  The cloud
+    and loop cases start two notes on a voice in block 0
+    (``_starts_per_voice``), of which the JAX package renders the last
+    only: the port renders with the JAX package's lowering
+    (``one_trigger``)."""
+    assert _starts_per_voice(case) == (1 if case == "sequential" else 2)
+    one_trigger(monkeypatch, psampler.Sampler)
     jprog, js, prog, ps = _programs(case)
     n = BLOCKS[case]
     jstate, state = jprog.init_state(), prog.init_state()
@@ -389,9 +406,11 @@ def test_render_matches_jax(case):
         _close(got.numpy(), np.asarray(want))
 
 
-def test_state_carried_from_jax():
+def test_state_carried_from_jax(monkeypatch):
     """JAX renders block 0; the port takes its state (the grain pools
-    included) and both render block 1."""
+    included) and both render block 1, the port with the JAX package's
+    lowering (``one_trigger``: block 0 starts two notes on a voice)."""
+    one_trigger(monkeypatch, psampler.Sampler)
     jprog, _, prog, _ = _programs("cloud")
     state1, _ = jprog.step_packed(jprog.init_state(), jprog.packed_block_inputs(0))
     _, want = jprog.step_packed(state1, jprog.packed_block_inputs(1))
@@ -440,17 +459,27 @@ def test_granular_pools_alone_and_state_carried():
 
 def test_lowering_matches_jax():
     """The granular sampler's block inputs, array by array; the read-speed
-    tag of the JAX package is ``_smax`` here."""
+    tag of the JAX package is ``_smax`` here.  The port gives each note
+    that starts on a voice a trigger slot (``_trig_*`` [V, K]); the JAX
+    package's ``[V]`` arrays hold each voice's last trigger, which is the
+    port's last used slot (a voice without one has its first, unused)."""
     jprog, js, prog, ps = _programs("loop")
     n = BLOCKS["loop"]
+    most = 0
     for b in range(2):
         want = js.lower_block_inputs(b * n, n)
         got = ps.lower_block_inputs(b * n, n)
         assert float(got.pop("_smax")) == 2.0 ** (len(want.pop("_spd_tag")) - 1)
         assert sorted(got) == sorted(want)
+        used = (got["_trig_time"] < n).sum(axis=1)
+        most = max(most, int(used.max()))
+        last = np.maximum(used - 1, 0)
         for k in want:
-            np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]),
-                                          err_msg=k)
+            g = np.asarray(got[k])
+            if k.startswith("_trig_"):
+                g = g[np.arange(len(last)), last]
+            np.testing.assert_array_equal(g, np.asarray(want[k]), err_msg=k)
+    assert most == 2
 
 
 def test_granular1k_matches_bench_config():

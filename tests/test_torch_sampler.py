@@ -48,6 +48,7 @@ from phonic_tpu_torch.ops import resample as presample
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "portbench"))
 from reference.sampler import SamplerReference  # noqa: E402
+from one_trigger import one_trigger  # noqa: E402
 
 BLOCK = 4096
 SR = 48000
@@ -282,19 +283,6 @@ def _close(got, want, bound):
     assert np.abs(got - want).max() <= bound * peak
 
 
-def _one_trigger(monkeypatch):
-    """Lower as the JAX package does: each voice's last trigger of a block
-    only, given to ``process`` as one trigger slot."""
-    lower = psampler.Sampler.lower_block_inputs
-
-    def lowered(self, block_start, block_len):
-        out = lower(self, block_start, block_len)
-        return {k: a[:, None] if k.startswith(("_trig_", "_ta_")) else a
-                for k, a in out.items()}
-    monkeypatch.setattr(psampler.Sampler, "_trigger_slots", lambda s: False)
-    monkeypatch.setattr(psampler.Sampler, "lower_block_inputs", lowered)
-
-
 def _starts_per_voice(case) -> int:
     """The most notes that start on one voice in one block of ``case``."""
     s = _program(pt, case).nodes["main/s"]
@@ -307,11 +295,11 @@ def test_render_matches_jax(case, monkeypatch):
     """Every case starts two notes on a voice in block 0
     (``_starts_per_voice``), of which the JAX package renders the last
     only: the port renders here with the JAX package's lowering
-    (``_one_trigger``), and the render of every note is compared with the
+    (``one_trigger``), and the render of every note is compared with the
     plain reference (``test_render_matches_reference``)."""
     assert _starts_per_voice(case) >= 2
     want = _program(jp, case).render(2 * BLOCK, mode="loop")
-    _one_trigger(monkeypatch)
+    one_trigger(monkeypatch, psampler.Sampler)
     got = _program(pt, case).render(2 * BLOCK)
     bound = DB120 if case == "dyadic" else DB90
     for b in range(2):

@@ -32,6 +32,7 @@ from phonic_tpu_torch.parallel.mesh import BatchedRenderProgram
 PORTBENCH = Path(__file__).resolve().parents[1] / "portbench"
 sys.path.insert(0, str(PORTBENCH))
 from reference.synth import SynthReference  # noqa: E402
+from one_trigger import one_trigger  # noqa: E402
 
 SR = 48000
 BLOCK = 8192
@@ -149,20 +150,6 @@ def test_dense_notes_match_reference(monkeypatch):
     assert {"releasing", "held"} <= set(kinds)
 
 
-def _one_trigger(monkeypatch):
-    """Lower as the JAX package does: each voice's last trigger of a block
-    only, given to ``render_lanes`` as one trigger slot."""
-    lower = psynth.SynthGenerator.lower_block_inputs
-
-    def lowered(self, block_start, block_len):
-        out = lower(self, block_start, block_len)
-        return {k: a[:, None] if k.startswith(("_trig_", "_ta_")) else a
-                for k, a in out.items()}
-    monkeypatch.setattr(psynth.SynthGenerator, "_trigger_slots",
-                        lambda s: False)
-    monkeypatch.setattr(psynth.SynthGenerator, "lower_block_inputs", lowered)
-
-
 def test_voice_renders_every_start(monkeypatch):
     """One voice starts 4 notes in one block (each released after 300
     frames, its voice free again before the next note, which cuts the
@@ -187,7 +174,7 @@ def test_voice_renders_every_start(monkeypatch):
     for t in starts:
         assert np.sqrt(np.mean(got[:, t:t + 300] ** 2)) > 0.01
     assert not got[:, :starts[0]].any()
-    _one_trigger(monkeypatch)
+    one_trigger(monkeypatch, psynth.SynthGenerator)
     last, _ = render()
     assert not last[:, :starts[-1]].any()
     assert np.sqrt(np.mean(last[:, starts[-1]:starts[-1] + 300] ** 2)) > 0.01
@@ -217,7 +204,7 @@ def test_silent_start_takes_its_voice(monkeypatch):
     assert _err_db(got[:, :onset], want[:, :onset]) <= TOLERANCE_DB
     assert not got[:, onset:].any()
     assert np.abs(got[:, BLOCK:onset]).max() > 0.01
-    _one_trigger(monkeypatch)
+    one_trigger(monkeypatch, psynth.SynthGenerator)
     np.testing.assert_array_equal(render(), got)
 
 
@@ -247,7 +234,7 @@ def test_voice_without_starts_renders_as_with_one_trigger(monkeypatch):
         return rows
 
     slots = render()
-    _one_trigger(monkeypatch)
+    one_trigger(monkeypatch, psynth.SynthGenerator)
     one = render()
     for b in range(2):
         for v in (0, 2, 3):
